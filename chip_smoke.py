@@ -1,0 +1,462 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+from the root of a checkout, on a machine with a card, ``nvcc`` and
+PyTorch built for CUDA. It imports the port (``src/repro_torch``) and
+nothing of JAX. Phases, each fatal on failure:
+
+1. device  - the card's name and power limit from ``nvidia-smi``;
+             float32 products in full precision (TF32 off for matmul and
+             cuDNN, so the plain versions are exact references);
+2. build   - ``nvcc`` builds every kernel from ``src/repro_torch/kernels/csrc``;
+3. kernels - each kernel against its plain version: the JAX package's
+             kernel test cases in f32 (max abs 2e-5) and bf16 (2e-2, and
+             within half a bf16 step of the f32 result plus 2^-16 max|v|),
+             and the main path's shapes; kernel, plain version and
+             ``scaled_dot_product_attention`` (the library yardstick,
+             which the port never calls) timed with CUDA events;
+4. serve   - full-width internlm2-1.8b (24 layers, random weights from
+             seed 0) serves 8 greedy requests through ``ServeEngine``,
+             once checking every logit row is finite, then again timed on
+             the host clock alone; the timed pass's launch counts show
+             prefill went through the flash-attention
+             kernel and decode through the flash-decoding kernel; the
+             first request's prefill logits and three teacher-forced
+             decode steps agree between kernels and plain versions.
+
+The line before the last is a JSON object with each kernel's launches,
+error, times and bound; the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12             # dense bf16 tensor cores
+F32_FLOPS = 67e12               # f32 outside the tensor cores
+
+# tests/test_kernels.py: FA_CASES (B, S, Hq, Hkv, d, window, softcap) and
+# DEC_CASES (B, S, Hq, Hkv, d, window, softcap, cache_len)
+FA_CASES = [(2, 256, 4, 2, 64, None, None), (1, 512, 8, 8, 128, 128, 50.0),
+            (2, 512, 4, 1, 64, None, 30.0), (1, 256, 2, 2, 32, 100, None),
+            (1, 256, 4, 2, 64, None, None)]
+DEC_CASES = [(2, 512, 4, 2, 64, None, None, 300), (1, 256, 8, 8, 128, 128, 50.0, 256),
+             (2, 512, 4, 1, 64, None, None, 1), (1, 1024, 16, 2, 64, None, 30.0, 777)]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# bf16 outputs also stay within half a bf16 step of the f32 result plus
+# EXCESS_TOL * max|v|: softmax weights kept to 16 bits (K1's tensor-core
+# path) leave at most 2^-18 max|v|, weights rounded to bf16 about 2^-9
+EXCESS_TOL = 2.0 ** -16
+MODEL_REL_TOL = 4e-2            # as tests/test_models.py: bf16 rounds differently
+
+
+def fail(msg: str) -> int:
+    print(f"[chip_smoke] FAILED: {msg}", file=sys.stderr)
+    return 1
+
+
+def cuda_ms(fn, iters: int = 20, flush=None) -> float:
+    """Median milliseconds of ``fn`` over ``iters`` launches timed with
+    CUDA events, after warm-up; ``flush`` (a large tensor) is rewritten
+    before each launch so the inputs come from device memory, not L2."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(iters)]
+    for start, end in ev:
+        if flush is not None:
+            flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in ev]))
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bf16_excess(out, ref32) -> float:
+    """How far a bf16 result lies beyond half a bf16 step of the f32
+    result on the same inputs: at most a few f32 roundings when the
+    kernel computes in f32 and rounds once at its output."""
+    import torch
+    o, r = out.float(), ref32.float()
+    _, e = torch.frexp(torch.maximum(o.abs(), r.abs()))
+    half_step = torch.ldexp(torch.ones_like(o), e - 9)     # bf16 keeps 8 bits
+    return ((o - r).abs() - half_step).max().item()
+
+
+def bound(n_bytes: float, n_ops: float, peak_ops: float):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ----------------------------------------------------------------------
+def phase_kernels(torch, dev):
+    """Kernels against their plain versions; timings at the path shapes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
+    from repro_torch.kernels.decode_attention.ref import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def check(name, out, ref, ref32, v, tol, what):
+        """max abs error against the plain version at ``tol``; a bf16
+        output also against the f32 plain result (``bf16_excess``)."""
+        e = err(out, ref)
+        line = f"[kernels] {name} {what}: max abs err {e:.3g} (tol {tol})"
+        if out.dtype == torch.bfloat16:
+            x, x_tol = bf16_excess(out, ref32), EXCESS_TOL * v.abs().max().item()
+            line += f", beyond half a bf16 step of f32 {x:.3g} (tol {x_tol:.3g})"
+            if not x <= x_tol:
+                raise AssertionError(f"{name} {what} rounds off the f32 result: {x}")
+        print(line)
+        if not e < tol:
+            raise AssertionError(f"{name} {what} disagrees: {e} >= {tol}")
+        return e
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[1]]
+        for b, s, hq, hkv, d, win, cap in FA_CASES:
+            q, k, v = randn((b, s, hq, d), dtype), randn((b, s, hkv, d), dtype), randn((b, s, hkv, d), dtype)
+            check("flash_attention", flash_attention(q, k, v, window=win, softcap=cap),
+                  attention_ref(q, k, v, window=win, softcap=cap),
+                  attention_ref(q.float(), k.float(), v.float(), window=win, softcap=cap),
+                  v, tol, f"{dtype} B={b} S={s} Hq={hq} Hkv={hkv} hd={d} window={win} "
+                  f"softcap={cap}")
+        for b, s, hq, hkv, d, win, cap, clen in DEC_CASES:
+            q, kc, vc = randn((b, 1, hq, d), dtype), randn((b, s, hkv, d), dtype), randn((b, s, hkv, d), dtype)
+            check("decode_attention",
+                  decode_attention_kernel(q, kc, vc, clen, window=win, softcap=cap),
+                  decode_attention(q, kc, vc, clen, window=win, softcap=cap),
+                  decode_attention(q.float(), kc.float(), vc.float(), clen, window=win,
+                                   softcap=cap),
+                  vc, tol, f"{dtype} B={b} S={s} Hq={hq} Hkv={hkv} hd={d} window={win} "
+                  f"softcap={cap} cache_len={clen}")
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)   # 256 MB > L2
+    rows = {}
+    # K1 at the model's prefill shapes: B=1, Hq=16, Hkv=8, hd=128, bf16
+    for s in (64, 512):
+        q = randn((1, s, 16, 128), torch.bfloat16)
+        k, v = randn((1, s, 8, 128), torch.bfloat16), randn((1, s, 8, 128), torch.bfloat16)
+        e = check("flash_attention", flash_attention(q, k, v), attention_ref(q, k, v),
+                  attention_ref(q.float(), k.float(), v.float()), v, TOL["bfloat16"],
+                  f"path B=1 S={s} Hq=16 Hkv=8 hd=128 bf16")
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k.repeat_interleave(2, 2),
+                                                                 v.repeat_interleave(2, 2)))
+        ms = cuda_ms(lambda: flash_attention(q, k, v), flush=flush)
+        plain = cuda_ms(lambda: attention_ref(q, k, v), flush=flush)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                      flush=flush)
+        ops = 4.0 * 16 * 128 * s * (s + 1) / 2          # QK and PV on the causal half
+        b_ms, b_by = bound(nbytes(q, k, v, q), ops, BF16_FLOPS)
+        print(f"[kernels] flash_attention path B=1 S={s} Hq=16 Hkv=8 hd=128 bf16: "
+              f"err {e:.3g} kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        rows[("flash_attention", s)] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
+                                            bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    # K2 at the engine's decode shapes: B=4 slots, max_len=1024, f32 cache, bf16 q
+    lens = torch.tensor([1, 1024, 300, 77], dtype=torch.int32, device=dev)
+    q = randn((4, 1, 16, 128), torch.bfloat16)
+    kc, vc = randn((4, 1024, 8, 128), torch.float32), randn((4, 1024, 8, 128), torch.float32)
+    e = err(decode_attention_kernel(q, kc, vc, lens), decode_attention(q, kc, vc, lens))
+    if not e < TOL["float32"]:
+        raise AssertionError(f"decode_attention at the path shape disagrees: {e}")
+    qf = q.float().transpose(1, 2).contiguous()                       # exact upcast
+    ke, ve = (x.repeat_interleave(2, 2).transpose(1, 2).contiguous() for x in (kc, vc))
+    mask = (torch.arange(1024, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    ms = cuda_ms(lambda: decode_attention_kernel(q, kc, vc, lens), flush=flush)
+    plain = cuda_ms(lambda: decode_attention(q, kc, vc, lens), flush=flush)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qf, ke, ve, attn_mask=mask),
+                  flush=flush)
+    rows_read = int(lens.sum().item())                 # cache rows this run needs
+    kv_bytes = 2 * rows_read * 8 * 128 * 4
+    ops = 4.0 * rows_read * 16 * 128
+    b_ms, b_by = bound(nbytes(q, lens) + kv_bytes + 4 * 16 * 128 * 4, ops, F32_FLOPS)
+    print(f"[kernels] decode_attention path B=4 max_len=1024 lens={lens.tolist()} "
+          f"f32 cache: err {e:.3g} kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    rows["decode_attention"] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
+                                    bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    del flush
+    return rows
+
+
+class _Probe:
+    """Mixed into ServeEngine. While ``checking``, every logit row's
+    finiteness is folded into one device flag. Otherwise it only reads
+    the host clock, adding no device work and no sync: prefill per
+    bucket (``_prefill_request`` ends in ``int(token)``, a host sync) and
+    decode per step, from ``_decode_compute`` to the end of
+    ``_finish_decode`` (whose ``.cpu()`` is the step's host sync)."""
+
+    checking = False
+
+    def _probe_reset(self, torch):
+        self._torch = torch
+        self.finite = torch.ones((), dtype=torch.bool, device=self.device)
+        self.prefill_ms, self.decode_ms = {}, []
+
+    def _sample(self, logits, temperature):
+        if self.checking:
+            self.finite &= self._torch.isfinite(logits).all()
+        return super()._sample(logits, temperature)
+
+    def _prefill_request(self, req):
+        t0 = time.perf_counter()
+        out = super()._prefill_request(req)
+        bucket = self._bucket_len(len(req.prompt))
+        self.prefill_ms.setdefault(bucket, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def _decode_compute(self, act):
+        self._t_decode = time.perf_counter()
+        logits = super()._decode_compute(act)
+        if self.checking:
+            self.finite &= self._torch.isfinite(logits).all()
+        return logits
+
+    def _finish_decode(self, act, logits):
+        retired = super()._finish_decode(act, logits)
+        self.decode_ms.append((time.perf_counter() - self._t_decode) * 1e3)
+        return retired
+
+
+def phase_serve(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config("internlm2-1.8b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev)
+
+    class Engine(_Probe, ServeEngine):
+        pass
+
+    eng = Engine(cfg, params, slots=4, max_len=1024, device=dev)
+    del params                                   # the engine keeps its bf16 copy
+    torch.cuda.synchronize()
+    print(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_count() / 1e9:.3f}B params, set up in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    rng = np.random.default_rng(0)
+    lens = [8, 512] + rng.integers(9, 512, 6).tolist()
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+
+    def submit_all():
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=16) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        return reqs
+
+    # a checked pass: every logit row finite (it also warms the engine up)
+    eng._probe_reset(torch)
+    eng.checking = True
+    checked = submit_all()
+    eng.run()
+    eng.checking = False
+    if not bool(eng.finite):
+        raise AssertionError("non-finite logits in the serve run")
+    # the timed pass: the same requests again, the counts read around it
+    eng._probe_reset(torch)
+    reqs = submit_all()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps0 = eng.stats["decode_steps"]
+    flash_attention.launches = decode_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention_kernel.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    toks = sum(len(r.out_tokens) for r in reqs)
+    print(f"[serve] prompt lengths {lens}, buckets {sorted(eng.prefill_ms)}")
+    print(f"[serve] {len(reqs)} requests, {toks} tokens in {wall:.3f} s = "
+          f"{toks / wall:.2f} tok/s; decode_steps {eng.stats['decode_steps'] - steps0}, "
+          f"prefill_compilations {eng.stats['prefill_compilations']}; "
+          f"peak memory {peak / 2 ** 30:.3f} GiB")
+    print("[serve] prefill ms per bucket: " + ", ".join(
+        f"{b}: {np.mean(v):.2f} (n={len(v)})" for b, v in sorted(eng.prefill_ms.items())))
+    d = np.asarray(eng.decode_ms)
+    print(f"[serve] decode ms per step: median {np.median(d):.2f}, mean {d.mean():.2f}, "
+          f"first {d[0]:.2f}, n={len(d)}")
+    print(f"[serve] kernel launches on the main path: {launches}; the checked pass's "
+          f"logits all finite, its tokens the timed pass's: "
+          f"{[r.out_tokens for r in checked] == [r.out_tokens for r in reqs]}")
+    if not all(r.done and len(r.out_tokens) == 16 for r in checked + reqs):
+        raise AssertionError("not every request finished with 16 tokens")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} kernel never launched on the main path")
+
+    # kernels vs plain versions on the whole model: the first request's
+    # prefill logits and three teacher-forced decode steps, same weights
+    r0 = reqs[0]
+    bucket = eng._bucket_len(len(r0.prompt))
+    toks_in = np.zeros((1, bucket), np.int32)
+    toks_in[0, :len(r0.prompt)] = r0.prompt
+    logits = {}
+    for impl in ("auto", "ref"):
+        out, cache, npos = M.prefill(cfg, eng.params, torch.as_tensor(toks_in, device=dev),
+                                     eng.max_len, impl=impl, cache_dtype=torch.float32,
+                                     length=len(r0.prompt))
+        steps = [out[:, -1]]
+        for i in range(3):
+            tok = torch.tensor([[r0.out_tokens[i]]], device=dev)
+            pos = torch.tensor([npos + i], dtype=torch.int32, device=dev)
+            out, cache = M.decode_step(cfg, eng.params, tok, cache, pos, impl=impl)
+            steps.append(out[:, 0])
+        logits[impl] = torch.cat(steps)                  # (4, V)
+        del cache
+    ref = logits["ref"]
+    rel = ((logits["auto"] - ref).abs().amax(-1) / ref.abs().amax(-1)).tolist()
+    same_top = (logits["auto"].argmax(-1) == ref.argmax(-1)).tolist()
+    print(f"[serve] kernels vs plain, request 0 (prompt {len(r0.prompt)}): rel err of "
+          f"prefill + 3 decode logits {[f'{x:.3g}' for x in rel]} (tol {MODEL_REL_TOL}), "
+          f"same argmax {same_top}")
+    if not max(rel) < MODEL_REL_TOL:
+        raise AssertionError(f"model logits with kernels disagree: {rel}")
+    profile_serve(torch, eng, cfg, rng)
+    return launches
+
+
+def profile_serve(torch, eng, cfg, rng):
+    """Where a serve step's time goes: one step that admits four prompts
+    (four prefills and a decode), then decode-only steps, each under
+    ``torch.profiler``. Prints host wall time, the device's busy time
+    (the sum of its kernels' and copies' time on the one stream), the
+    largest device items and the largest host ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.engine import Request
+
+    for i in range(4):
+        eng.submit(Request(rid=100 + i, prompt=rng.integers(0, cfg.vocab_size, 300)
+                           .astype(np.int32), max_new_tokens=8))
+    for label, steps in (("admit 4 x 300-token prompts + decode", 1), ("decode", 4)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        # device rows only: a CPU op's self device time repeats its kernels'
+        events = prof.key_averages()
+        rows = [(e.self_device_time_total / 1e3 / steps, e.count // steps, e.key)
+                for e in events if e.device_type != DeviceType.CPU]
+        busy = sum(r[0] for r in rows)
+        rows = sorted((r for r in rows if r[0] > 0), reverse=True)[:8]
+        share = (f"{busy:.3f} ms, idle {100 * (1 - busy / wall):.1f}%" if busy > 0
+                 else "not measured (the profiler recorded no device time)")
+        print(f"[profile] {label}: host wall {wall:.3f} ms per step, device busy {share}")
+        for ms, n, key in rows:
+            print(f"[profile]   device {ms:8.3f} ms  {n:5d}x  {key[:90]}")
+        host = sorted(((e.self_cpu_time_total / 1e3 / steps, e.count // steps, e.key)
+                       for e in events if e.device_type == DeviceType.CPU), reverse=True)[:8]
+        for ms, n, key in host:
+            print(f"[profile]   host   {ms:8.3f} ms  {n:5d}x  {key[:90]}")
+    eng.run()
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        return fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        return fail("no CUDA device: this smoke test runs only on a card")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        return fail(f"no src/repro_torch beside {Path(__file__).name}: run it "
+                    "from a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    # 1. device. TF32 off: the plain versions' f32 products stay exact.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()
+    dev = torch.device("cuda", 0)
+    print(smi[0])
+    print(f"[device] {torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
+          f"device(s), torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}; TF32 off for matmul and cuDNN")
+
+    # 2. build
+    t0 = time.perf_counter()
+    built = _build.build()
+    print(f"[build] {sorted(built) or 'nothing new'} in {time.perf_counter() - t0:.2f} s "
+          f"(per kernel, all at once: {{{', '.join(f'{k}: {v:.2f}' for k, v in built.items())}}})")
+    for name in _build.SIGNATURES:
+        log = _build.build_log(name)
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+        print(f"[build] {name}: {len(regs)} kernel instances, registers "
+              f"{min(regs, default=0)}..{max(regs, default=0)} per thread, "
+              f"spill stores up to {max(spills, default=0)} bytes (ptxas -v)")
+
+    # 3. kernels
+    rows = phase_kernels(torch, dev)
+
+    # 4. serve
+    launches = phase_serve(torch, dev)
+
+    kernels = [
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:28",
+             launches=launches["flash_attention"], **rows[("flash_attention", 512)]),
+        dict(name="decode_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention/kernel.py:26",
+             launches=launches["decode_attention"], **rows["decode_attention"]),
+    ]
+    for k in kernels:
+        if not all(math.isfinite(k[f]) for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")):
+            raise AssertionError(f"non-finite measurement for {k['name']}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,102 @@
+"""Wrapper of the CUDA flash-decoding kernel (``csrc/decode_attention.cu``)
+in the model zoo's (B,1,Hq,hd) / (B,S,Hkv,hd) layout, with a per-row
+``cache_len``.
+
+A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
+version (``ref.decode_attention``). ``decode_attention_kernel.launches``
+counts the launches of the kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention.ref import decode_attention
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256
+MAX_GROUPS = 8
+
+
+def _check(q, k_cache, v_cache, window, softcap):
+    dev = q.device
+    if not (q.is_cuda and k_cache.device == dev and v_cache.device == dev):
+        raise ValueError("decode_attention: q and the caches must lie on one "
+                         "CUDA device")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"decode_attention: q must be float32 or bfloat16, "
+                        f"got {q.dtype}")
+    if k_cache.dtype not in DTYPES or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"decode_attention: the caches must share a dtype of "
+                        f"float32 or bfloat16, got {k_cache.dtype}, {v_cache.dtype}")
+    if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 \
+            or k_cache.shape != v_cache.shape:
+        raise ValueError(f"decode_attention: want q (B,1,Hq,hd) and caches "
+                         f"(B,S,Hkv,hd), got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    b, _, hq, d = q.shape
+    if k_cache.shape[0] != b or k_cache.shape[3] != d:
+        raise ValueError("decode_attention: caches must match q's batch and head dim")
+    hkv = k_cache.shape[2]
+    if hkv == 0 or hq % hkv or hq // hkv > MAX_GROUPS:
+        raise ValueError(f"decode_attention: {hq} q heads must group over "
+                         f"{hkv} kv heads, at most {MAX_GROUPS} to a group")
+    if d > MAX_HEAD_DIM or d % 4:
+        raise ValueError(f"decode_attention: head dim {d} must be a multiple "
+                         f"of 4 and at most {MAX_HEAD_DIM}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} must be contiguous "
+                             "and 16-byte aligned")
+    if window is not None and window <= 0:
+        raise ValueError(f"decode_attention: window must be positive, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"decode_attention: softcap must be positive, got {softcap}")
+
+
+def _row_lengths(cache_len, b: int, device) -> torch.Tensor:
+    """An int, a scalar tensor or a (B,) tensor -> (B,) int32 on device."""
+    clen = torch.as_tensor(cache_len, device=device)
+    if clen.dim() == 0:
+        clen = clen.expand(b)
+    if clen.shape != (b,):
+        raise ValueError(f"decode_attention: cache_len must be a scalar or "
+                         f"({b},), got {tuple(clen.shape)}")
+    if clen.dtype.is_floating_point or clen.dtype == torch.bool:
+        raise TypeError(f"decode_attention: cache_len must be integer, got {clen.dtype}")
+    return clen.to(torch.int32).contiguous()
+
+
+def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, cache_len, *,
+                            window: Optional[int] = None,
+                            softcap: Optional[float] = None) -> torch.Tensor:
+    """q (B,1,Hq,hd); caches (B,S,Hkv,hd); cache_len scalar or (B,).
+    Returns (B,1,Hq,hd) in the cache dtype."""
+    if q.device.type == "cpu":
+        return decode_attention(q, k_cache, v_cache, cache_len,
+                                window=window, softcap=softcap)
+    _check(q, k_cache, v_cache, window, softcap)
+    b, _, hq, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    clen = _row_lengths(cache_len, b, q.device)
+    out = torch.empty(q.shape, dtype=k_cache.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library("decode_attention")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.decode_forward(q.data_ptr(), k_cache.data_ptr(),
+                                 v_cache.data_ptr(), clen.data_ptr(),
+                                 out.data_ptr(), DTYPES[q.dtype],
+                                 DTYPES[k_cache.dtype], b, s, hq, hkv, d,
+                                 window or 0, 1.0 / (d ** 0.5), softcap or 0.0,
+                                 stream)
+    _build.check(err, "decode_attention launch")
+    decode_attention_kernel.launches += 1
+    return out
+
+
+decode_attention_kernel.launches = 0

@@ -1,0 +1,131 @@
+"""The port stands apart from the JAX package and from the CPU:
+
+- nothing under ``src/repro_torch`` nor ``chip_smoke.py`` imports jax or
+  the JAX package ``repro``, and importing the port loads neither;
+- its entry points default to ``cuda`` and raise without a card;
+- its kernel wrappers take the plain version only for CPU tensors and
+  count no launch for them;
+- on a card (``-m gpu``), each kernel agrees with its plain version.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
+from repro_torch.kernels.decode_attention.ref import decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models import model as TM
+from repro_torch.models.params import init_params
+from repro_torch.serve.engine import ServeEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(mod: str) -> bool:
+    return mod.split(".")[0] in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_repro(path):
+    assert path.exists()
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_importing_port_loads_neither_jax_nor_repro():
+    code = ("import sys, repro_torch, repro_torch.serve.engine, "
+            "repro_torch.launch.serve\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("internlm2-1.8b").reduced()
+    gen = torch.Generator()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, gen)
+    params = init_params(cfg, gen, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.init_cache(cfg, 2, 16)
+    assert ServeEngine(cfg, params, device="cpu").device.type == "cpu"
+
+
+def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((1, 16, 4, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 16, 2, 16)).astype(np.float32))
+    before = flash_attention.launches, decode_attention_kernel.launches
+    torch.testing.assert_close(flash_attention(q, k, k), attention_ref(q, k, k),
+                               rtol=0, atol=0)
+    lens = torch.tensor([5])
+    torch.testing.assert_close(decode_attention_kernel(q[:, :1], k, k, lens),
+                               decode_attention(q[:, :1], k, k, lens), rtol=0, atol=0)
+    assert (flash_attention.launches, decode_attention_kernel.launches) == before
+
+
+def test_unsupported_configs_raise():
+    cfg = get_config("internlm2-1.8b").reduced(num_experts=4, num_experts_per_tok=2)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(KeyError):
+        get_config("mamba2-2.7b")
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_versions_on_card():
+    """Run with ``-m gpu`` on a machine with a card and nvcc."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for s, win, cap in ((256, None, None), (100, 32, 30.0)):
+            q, k, v = (torch.randn((2, s, h, 64), generator=gen, device=dev).to(dtype)
+                       for h in (4, 2, 2))
+            n0 = flash_attention.launches
+            out = flash_attention(q, k, v, window=win, softcap=cap)
+            assert flash_attention.launches == n0 + 1
+            ref = attention_ref(q, k, v, window=win, softcap=cap)
+            assert (out.float() - ref.float()).abs().max().item() < tol
+            if dtype == torch.bfloat16:
+                # computed in f32 and rounded once: within half a bf16 step
+                # of the f32 result, plus 2^-16 max|v| for the softmax
+                # weights' 16-bit split on the tensor cores
+                r32 = attention_ref(q.float(), k.float(), v.float(), window=win,
+                                    softcap=cap)
+                _, e = torch.frexp(torch.maximum(out.float().abs(), r32.abs()))
+                excess = (out.float() - r32).abs() - torch.ldexp(torch.ones_like(r32), e - 9)
+                assert excess.max().item() <= 2.0 ** -16 * v.float().abs().max().item()
+    q = torch.randn((3, 1, 8, 128), generator=gen, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn((3, 256, 2, 128), generator=gen, device=dev) for _ in range(2))
+    lens = torch.tensor([1, 256, 0], device=dev)
+    out = decode_attention_kernel(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    ref = decode_attention(q, kc, vc, lens)
+    assert (out[:2] - ref[:2]).abs().max().item() < 2e-5
+    assert out[2].abs().max().item() == 0.0          # no visible key: 0, not NaN
