@@ -12,19 +12,28 @@ nothing of JAX. Phases, each fatal on failure:
              cuDNN, so the plain versions are exact references);
 2. build   - ``nvcc`` builds every kernel from ``src/repro_torch/kernels/csrc``;
 3. kernels - each kernel against its plain version: the JAX package's
-             kernel test cases in f32 (max abs 2e-5) and bf16 (2e-2, and
-             within half a bf16 step of the f32 result plus 2^-16 max|v|),
-             and the main path's shapes; kernel, plain version and
-             ``scaled_dot_product_attention`` (the library yardstick,
-             which the port never calls) timed with CUDA events;
-4. serve   - full-width internlm2-1.8b (24 layers, random weights from
-             seed 0) serves 8 greedy requests through ``ServeEngine``,
-             once checking every logit row is finite, then again timed on
-             the host clock alone; the timed pass's launch counts show
-             prefill went through the flash-attention
-             kernel and decode through the flash-decoding kernel; the
+             kernel test cases, attention in f32 (max abs 2e-5) and bf16
+             (2e-2, and within half a bf16 step of the f32 result plus
+             2^-16 max|v|), the SSD scan in f32 against the sequential
+             recurrence (5e-3 on y and on the state, also at ragged
+             lengths), and the main paths' shapes; kernel, plain version
+             and the library yardstick where one PyTorch call computes
+             the same function (``scaled_dot_product_attention``, which
+             the port never calls) timed with CUDA events;
+4. serve   - full-width internlm2-1.8b (24 layers), then full-width
+             mamba2-2.7b (64 layers), random weights from seed 0, each
+             serves 8 greedy requests through ``ServeEngine``, once
+             checking every logit row is finite, then again timed on the
+             host clock alone; the timed pass's launch counts (all set to
+             0 just before it) show internlm2's prefill went through the
+             flash-attention kernel and its decode through the
+             flash-decoding kernel, and mamba2's prefill through the
+             SSD-scan kernel, once per layer and request or step; the
              first request's prefill logits and three teacher-forced
-             decode steps agree between kernels and plain versions.
+             decode steps agree between kernels and plain versions; for
+             mamba2, along a ragged prompt, each layer's scan and mixer
+             output with the kernel agree with the plain versions;
+             ``torch.profiler`` breaks down a step.
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is
@@ -32,6 +41,7 @@ error, times and bound; the last line is
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -54,12 +64,22 @@ FA_CASES = [(2, 256, 4, 2, 64, None, None), (1, 512, 8, 8, 128, 128, 50.0),
             (1, 256, 4, 2, 64, None, None)]
 DEC_CASES = [(2, 512, 4, 2, 64, None, None, 300), (1, 256, 8, 8, 128, 128, 50.0, 256),
              (2, 512, 4, 1, 64, None, None, 1), (1, 1024, 16, 2, 64, None, 30.0, 777)]
+# tests/test_kernels.py: SSD_CASES (B, S, H, P, N, chunk, head tile)
+SSD_CASES = [(2, 64, 4, 8, 16, 16, 2), (1, 128, 6, 16, 8, 32, 3),
+             (2, 256, 8, 16, 32, 64, 8)]
+SSD_RAGGED = [(2, 100, 8, 16, 32, 128), (1, 300, 4, 64, 128, 128)]
+SSD_TOL = 5e-3                  # the scan against the recurrence, f32 math
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # bf16 outputs also stay within half a bf16 step of the f32 result plus
 # EXCESS_TOL * max|v|: softmax weights kept to 16 bits (K1's tensor-core
 # path) leave at most 2^-18 max|v|, weights rounded to bf16 about 2^-9
 EXCESS_TOL = 2.0 ** -16
 MODEL_REL_TOL = 4e-2            # as tests/test_models.py: bf16 rounds differently
+# K3 inside each mamba2 layer, kernel vs plain, relative to the largest
+# plain magnitude: y and state in f32, about 5x the largest readings on an
+# H100 (1.8e-5, 9.6e-6); the mixer output after bf16, two bf16 steps of
+# its largest element (read 5.4e-3: one step, where y rounded the other way)
+SSM_LAYER_TOL = {"y": 1e-4, "state": 1e-4, "mixer": 2.0 ** -6}
 
 
 def fail(msg: str) -> int:
@@ -115,6 +135,8 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels.decode_attention.ref import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_sequential_ref
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -204,6 +226,50 @@ def phase_kernels(torch, dev):
           f"sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     rows["decode_attention"] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
                                     bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+
+    # K3: SSD_CASES and ragged lengths in f32 against the recurrence
+    def ssd_inputs(b, s, h, p, n, dtype):
+        x = randn((b, s, h, p), dtype)
+        dt = F.softplus(randn((b, s, h), torch.float32))
+        a = -torch.exp(randn((h,), torch.float32))
+        return x, dt, a, randn((b, s, n), dtype), randn((b, s, n), dtype)
+
+    for b, s, h, p, n, chunk in [c[:6] for c in SSD_CASES] + SSD_RAGGED:
+        x, dt, a, bm, cm = ssd_inputs(b, s, h, p, n, torch.float32)
+        y, hf = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+        yr, hr = ssd_sequential_ref(x, dt, a, bm, cm)
+        ey, eh = err(y, yr), err(hf, hr)
+        print(f"[kernels] ssd_scan float32 B={b} S={s} H={h} P={p} N={n} chunk={chunk}: "
+              f"max abs err y {ey:.3g}, h {eh:.3g} (tol {SSD_TOL}) against ssd_ref")
+        if not max(ey, eh) < SSD_TOL:
+            raise AssertionError(f"ssd_scan disagrees at S={s}: y {ey}, h {eh}")
+    # K3 at mamba2-2.7b's prefill: B=1, S=512, H=80, P=64, N=128, chunk 256,
+    # bf16 x/B/C and f32 dt/A distributed as the model makes them
+    b, s, h, p, n, chunk = 1, 512, 80, 64, 128, 256
+    x = F.silu(randn((b, s, h, p), torch.float32)).to(torch.bfloat16)
+    dt = F.softplus(randn((b, s, h), torch.float32) - 4.0)
+    a = -(1.0 + 15.0 * torch.rand((h,), generator=gen, device=dev))
+    bm, cm = (F.silu(randn((b, s, n), torch.float32)).to(torch.bfloat16) for _ in range(2))
+    y, hf = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    yr, hr = ssd_chunked_ref(x.float(), dt, a, bm, cm, chunk=chunk)
+    e = max(err(y, yr), err(hf, hr))
+    if not e < SSD_TOL:
+        raise AssertionError(f"ssd_scan at the path shape disagrees: {e}")
+    ms = cuda_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=chunk), flush=flush)
+    plain = cuda_ms(lambda: ssd_chunked_ref(x.float(), dt, a, bm, cm, chunk=chunk), flush=flush)
+    # the least work the function needs: per token and head, the
+    # recurrence's state update and its read into y, one FMA per state
+    # element each (4PN flops); a chunked scan does the same per token and
+    # adds its intra-chunk products, at any chunk length
+    ops = 4.0 * b * s * h * p * n
+    b_ms, b_by = bound(nbytes(x, dt, a, bm, cm, y, hf), ops, F32_FLOPS)
+    print(f"[kernels] ssd_scan path B={b} S={s} H={h} P={p} N={n} chunk={chunk} bf16 x/B/C: "
+          f"err {e:.3g} (max |y| {yr.abs().max().item():.3g}) kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by}; "
+          f"{ops / 1e9:.3f} GFLOP as 4PN per token and head, "
+          f"{nbytes(x, dt, a, bm, cm, y, hf) / 1e6:.2f} MB)")
+    rows["ssd_scan"] = dict(max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=None)
     del flush
     return rows
 
@@ -248,15 +314,25 @@ class _Probe:
         return retired
 
 
-def phase_serve(torch, dev):
-    from repro_torch.configs import get_config
+def launch_counters():
+    """Each kernel wrapper by name; ``.launches`` is its launch count."""
     from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    return {"flash_attention": flash_attention,
+            "decode_attention": decode_attention_kernel, "ssd_scan": ssd_scan}
+
+
+def phase_serve(torch, dev, arch, path_kernels):
+    """Serve 8 requests of full-width ``arch``; every kernel named in
+    ``path_kernels`` must launch in the timed pass. Returns the timed
+    pass's launch counts."""
+    from repro_torch.configs import get_config
     from repro_torch.models import model as M
-    from repro_torch.models.params import init_params
+    from repro_torch.models.params import init_params, layer_period, num_groups, slot_kind
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = get_config("internlm2-1.8b")
+    cfg = get_config(arch)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     t0 = time.perf_counter()
@@ -289,40 +365,52 @@ def phase_serve(torch, dev):
     eng.run()
     eng.checking = False
     if not bool(eng.finite):
-        raise AssertionError("non-finite logits in the serve run")
-    # the timed pass: the same requests again, the counts read around it
+        raise AssertionError(f"non-finite logits in the {arch} serve run")
+    # the timed pass: the same requests again, the counts set to 0 just
+    # before it and read just after
     eng._probe_reset(torch)
     reqs = submit_all()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     steps0 = eng.stats["decode_steps"]
-    flash_attention.launches = decode_attention_kernel.launches = 0
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "decode_attention": decode_attention_kernel.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     toks = sum(len(r.out_tokens) for r in reqs)
-    print(f"[serve] prompt lengths {lens}, buckets {sorted(eng.prefill_ms)}")
-    print(f"[serve] {len(reqs)} requests, {toks} tokens in {wall:.3f} s = "
+    print(f"[serve] {arch}: prompt lengths {lens}, prefill lengths (buckets) "
+          f"{sorted(eng.prefill_ms)}")
+    print(f"[serve] {arch}: {len(reqs)} requests, {toks} tokens in {wall:.3f} s = "
           f"{toks / wall:.2f} tok/s; decode_steps {eng.stats['decode_steps'] - steps0}, "
           f"prefill_compilations {eng.stats['prefill_compilations']}; "
           f"peak memory {peak / 2 ** 30:.3f} GiB")
-    print("[serve] prefill ms per bucket: " + ", ".join(
+    print(f"[serve] {arch}: prefill ms per length (bucket): " + ", ".join(
         f"{b}: {np.mean(v):.2f} (n={len(v)})" for b, v in sorted(eng.prefill_ms.items())))
     d = np.asarray(eng.decode_ms)
-    print(f"[serve] decode ms per step: median {np.median(d):.2f}, mean {d.mean():.2f}, "
-          f"first {d[0]:.2f}, n={len(d)}")
-    print(f"[serve] kernel launches on the main path: {launches}; the checked pass's "
-          f"logits all finite, its tokens the timed pass's: "
+    print(f"[serve] {arch}: decode ms per step: median {np.median(d):.2f}, "
+          f"mean {d.mean():.2f}, first {d[0]:.2f}, n={len(d)}")
+    print(f"[serve] {arch}: kernel launches on the main path: {launches}; the checked "
+          f"pass's logits all finite, its tokens the timed pass's: "
           f"{[r.out_tokens for r in checked] == [r.out_tokens for r in reqs]}")
     if not all(r.done and len(r.out_tokens) == 16 for r in checked + reqs):
         raise AssertionError("not every request finished with 16 tokens")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} kernel never launched on the main path")
+    for name in path_kernels:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} kernel never launched on the {arch} path")
+    # one launch per layer of its kind per request (prefill) or step (decode)
+    kinds = [slot_kind(cfg, i)["kind"] for i in range(layer_period(cfg))] * num_groups(cfg)
+    n_attn, n_ssm = kinds.count("attn"), len(kinds) - kinds.count("attn")
+    expect = {"flash_attention": n_attn * len(reqs),
+              "decode_attention": n_attn * (eng.stats["decode_steps"] - steps0),
+              "ssd_scan": n_ssm * len(reqs)}
+    if launches != expect:
+        raise AssertionError(f"{arch} launches {launches}, not one per layer and "
+                             f"request or decode step: {expect}")
 
     # kernels vs plain versions on the whole model: the first request's
     # prefill logits and three teacher-forced decode steps, same weights
@@ -346,13 +434,59 @@ def phase_serve(torch, dev):
     ref = logits["ref"]
     rel = ((logits["auto"] - ref).abs().amax(-1) / ref.abs().amax(-1)).tolist()
     same_top = (logits["auto"].argmax(-1) == ref.argmax(-1)).tolist()
-    print(f"[serve] kernels vs plain, request 0 (prompt {len(r0.prompt)}): rel err of "
-          f"prefill + 3 decode logits {[f'{x:.3g}' for x in rel]} (tol {MODEL_REL_TOL}), "
-          f"same argmax {same_top}")
+    print(f"[serve] {arch}: kernels vs plain, request 0 (prompt {len(r0.prompt)}): rel "
+          f"err of prefill + 3 decode logits {[f'{x:.3g}' for x in rel]} "
+          f"(tol {MODEL_REL_TOL}), same argmax {same_top}")
     if not max(rel) < MODEL_REL_TOL:
-        raise AssertionError(f"model logits with kernels disagree: {rel}")
+        raise AssertionError(f"{arch} model logits with kernels disagree: {rel}")
+    if n_ssm:
+        check_ssm_layers(torch, dev, cfg, eng.params,
+                         max((p for p in prompts if len(p) % cfg.ssm_chunk), key=len))
     profile_serve(torch, eng, cfg, rng)
     return launches
+
+
+def check_ssm_layers(torch, dev, cfg, params, prompt):
+    """K3 where it does real work inside the model: along the plain
+    path's hidden stream of one ragged prompt, at every layer, K3's f32 y
+    and final state against ``ssd_chunked``'s on that layer's own scan
+    inputs, and the layer's mixer output with the kernel against the
+    plain version (both round y to bf16), each relative to the plain
+    result's largest magnitude. Then the whole model's prefill logits,
+    kernels against plain, are read but held to no limit: over 64 layers
+    they carry the model's bf16 noise, not the kernel's error."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import rmsnorm
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    toks = torch.as_tensor(prompt, device=dev)[None]
+    x = M.embed_tokens(cfg, params, toks)
+    positions = torch.arange(x.shape[1], device=dev)
+    worst = dict.fromkeys(SSM_LAYER_TOL, 0.0)
+    for slot, _, p in M._layers(cfg, params):
+        hn = rmsnorm(x, p["norm1"]["scale"], cfg.norm_eps)
+        x_in, z, b_in, c_in, dt_raw, A = M._ssm_inputs(cfg, p["ssm"], hn)
+        xh, dt, bm, cm, _ = M._ssm_scan_inputs(cfg, p["ssm"], x_in, b_in, c_in, dt_raw)
+        y, hf = ssd_scan(xh, dt, A, bm, cm, chunk=cfg.ssm_chunk)
+        yr, hr = ssd_chunked_ref(xh.float(), dt, A, bm, cm, chunk=cfg.ssm_chunk)
+        mix = [M._ssm_mixer(cfg, p["ssm"], hn, impl=impl) for impl in ("auto", "ref")]
+        for key, e in (("y", rel(y, yr)), ("state", rel(hf, hr)), ("mixer", rel(*mix))):
+            worst[key] = max(worst[key], e)
+        x = M.apply_layer(cfg, slot, p, x, positions=positions, impl="ref")
+    print(f"[serve] {cfg.name}: K3 in each of {cfg.num_layers} layers, prompt "
+          f"{len(prompt)}, kernel vs plain on the layer's inputs, largest rel err: " +
+          ", ".join(f"{k} {v:.3g} (tol {SSM_LAYER_TOL[k]})" for k, v in worst.items()))
+    if not all(worst[k] < SSM_LAYER_TOL[k] for k in worst):
+        raise AssertionError(f"{cfg.name}: K3 inside the model disagrees: {worst}")
+    logits = [M.prefill(cfg, params, toks, toks.shape[1], impl=impl,
+                        cache_dtype=torch.float32)[0][0, 0] for impl in ("auto", "ref")]
+    print(f"[serve] {cfg.name}: kernels vs plain, prefill logits of the same prompt: "
+          f"rel err {rel(*logits):.3g} (the model's bf16 noise at {cfg.num_layers} "
+          f"layers; no limit)")
 
 
 def profile_serve(torch, eng, cfg, rng):
@@ -384,7 +518,8 @@ def profile_serve(torch, eng, cfg, rng):
         rows = sorted((r for r in rows if r[0] > 0), reverse=True)[:8]
         share = (f"{busy:.3f} ms, idle {100 * (1 - busy / wall):.1f}%" if busy > 0
                  else "not measured (the profiler recorded no device time)")
-        print(f"[profile] {label}: host wall {wall:.3f} ms per step, device busy {share}")
+        print(f"[profile] {cfg.name} {label}: host wall {wall:.3f} ms per step, "
+              f"device busy {share}")
         for ms, n, key in rows:
             print(f"[profile]   device {ms:8.3f} ms  {n:5d}x  {key[:90]}")
         host = sorted(((e.self_cpu_time_total / 1e3 / steps, e.count // steps, e.key)
@@ -435,8 +570,13 @@ def main() -> int:
     # 3. kernels
     rows = phase_kernels(torch, dev)
 
-    # 4. serve
-    launches = phase_serve(torch, dev)
+    # 4. serve: internlm2 (K1, K2), then mamba2 (K3) once internlm2's
+    #    engine is freed
+    launches = phase_serve(torch, dev, "internlm2-1.8b",
+                           ("flash_attention", "decode_attention"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_ssm = phase_serve(torch, dev, "mamba2-2.7b", ("ssd_scan",))
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -447,6 +587,10 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:26",
              launches=launches["decode_attention"], **rows["decode_attention"]),
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan/kernel.py:28",
+             launches=launches_ssm["ssd_scan"], **rows["ssd_scan"]),
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")):

@@ -37,5 +37,6 @@ def params_from_numpy(tree: PyTree, device=None) -> PyTree:
 
 def cache_from_numpy(tree: PyTree, device=None) -> PyTree:
     """The JAX ``init_cache`` tree (as numpy): a tuple of per-slot
-    ``{"k","v"}`` of shape ``(G,B,max_len,Hkv,hd)``."""
+    ``{"k","v"}`` of shape ``(G,B,max_len,Hkv,hd)`` for attention, or
+    ``{"h","conv_x","conv_b","conv_c"}`` for SSM layers."""
     return _to_torch(tree, resolve_device(device))

@@ -1,8 +1,10 @@
 """--arch registry: the architectures the port can run.
 
-Only ``internlm2-1.8b`` so far: the dense attention path. The other
-archs of the JAX package need MoE, SSM, codebooks or frontends, which
-later slices of the port add.
+``internlm2-1.8b`` (dense attention with a gated MLP) and
+``mamba2-2.7b`` (attention-free Mamba2 SSD layers). The other archs of
+the JAX package need MoE, hybrid attention + SSM with MoE, codebooks,
+frontends or other attention variants, which later slices of the port
+add.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
 }
 
 

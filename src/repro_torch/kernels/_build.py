@@ -41,6 +41,11 @@ SIGNATURES = {
         "decode_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _F, _F, _P),
     },
+    "ssd_scan": {
+        # x, dt, A, Bm, C, y, h, x_dtype, B, S, H, P, N, stream
+        "ssd_scan_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,4 +1,4 @@
-// Helpers shared by the attention kernels: 4-wide loads and stores that
+// Helpers shared by the kernels: 4-wide loads and stores that
 // convert between the storage type (f32 or bf16) and f32 registers.
 #pragma once
 

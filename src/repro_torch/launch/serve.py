@@ -1,11 +1,14 @@
 """Serving launcher: batched requests through the port's ServeEngine.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
 
 runs the full-width model on the card (random weights from seed 0):
-prefill through the CUDA flash-attention kernel, decode through the CUDA
-flash-decoding kernel. ``--reduced --device cpu`` runs a tiny model on
-the CPU through the plain versions.
+internlm2's prefill through the CUDA flash-attention kernel and decode
+through the CUDA flash-decoding kernel; mamba2's prefill through the
+CUDA SSD-scan kernel and decode through the one-token recurrence.
+``--reduced --device cpu`` runs a tiny model on the CPU through the
+plain versions.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.params import init_params
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -56,7 +60,7 @@ def main(argv=None):
         reqs.append(r)
         eng.submit(r)
 
-    flash_attention.launches = decode_attention_kernel.launches = 0
+    flash_attention.launches = decode_attention_kernel.launches = ssd_scan.launches = 0
     t0 = time.monotonic()
     eng.run()
     if device.type == "cuda":
@@ -68,7 +72,7 @@ def main(argv=None):
           f"prefill_compilations={eng.stats['prefill_compilations']}")
     print(f"[serve] kernel launches: flash_attention={flash_attention.launches} "
           f"decode_attention={decode_attention_kernel.launches} "
-          f"(device {device})")
+          f"ssd_scan={ssd_scan.launches} (device {device})")
     for r in reqs[:4]:
         print(f"  req{r.rid}: {r.out_tokens[:10]}{'...' if len(r.out_tokens) > 10 else ''}")
     if not all(r.done for r in reqs):

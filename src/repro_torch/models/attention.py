@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import use_kernel
 from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -23,19 +24,11 @@ from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
 
 __all__ = ["NEG_INF", "attention_ref", "decode_attention", "attention", "decode"]
 
-IMPLS = ("auto", "ref")
-
-
-def _use_kernel(impl: str, x: torch.Tensor) -> bool:
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    return impl == "auto" and x.is_cuda
-
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               softcap: Optional[float] = None, impl: str = "auto"):
     """Self-attention for train / prefill: q (B,S,Hq,hd), k/v (B,S,Hkv,hd)."""
-    if _use_kernel(impl, q):
+    if use_kernel(impl, q):
         return flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap)
     return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
@@ -45,7 +38,7 @@ def decode(q, k_cache, v_cache, cache_len, *, window: Optional[int] = None,
            softcap: Optional[float] = None, impl: str = "auto"):
     """One-token attention: q (B,1,Hq,hd), caches (B,S,Hkv,hd), cache_len
     scalar or (B,). Returns the cache dtype."""
-    if _use_kernel(impl, q):
+    if use_kernel(impl, q):
         return decode_attention_kernel(q, k_cache, v_cache, cache_len,
                                        window=window, softcap=softcap)
     return decode_attention(q, k_cache, v_cache, cache_len, window=window,

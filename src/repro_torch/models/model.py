@@ -1,28 +1,39 @@
 """The decoder LM, the counterpart of ``repro/models/model.py`` for
-attention layers with a dense MLP.
+attention layers with a dense MLP and Mamba2 SSM layers.
 
 ``forward`` covers train and prefill without a cache; ``prefill`` builds
 the cache; ``decode_step`` advances one token against it. Layers run as a
 Python loop over period groups (the JAX package's ``lax.scan``). The
 dtype flow is the JAX one: the residual stream in ``cfg.dtype`` (bf16),
-every product in bf16, norms and softmax in f32.
+every product in bf16, norms, softmax and the SSD scan in f32.
 
-Unlike the JAX functions, ``decode_step`` writes the new token's K/V into
-the cache it is given, in place, and returns that same cache: JAX's
-``.at[].set`` builds a new array, which on the card would copy the whole
-cache every step.
+An attention slot's cache is ``{"k","v"}``; an SSM slot's is the
+recurrent state ``h`` (f32) and the conv inputs ``conv_x/b/c``. On the
+card, attention prefill runs the CUDA flash-attention kernel, attention
+decode the flash-decoding kernel, and SSM prefill the CUDA SSD-scan
+kernel; SSM decode is the one-token recurrence in plain tensor ops, as
+in the JAX package.
 
-Codebooks, frontends, MoE and SSM layers raise (later slices).
+Unlike the JAX functions, ``decode_step`` writes the new token's K/V and
+the new SSM states into the cache it is given, in place, and returns
+that same cache: JAX's ``.at[].set`` builds a new array, which on the
+card would copy the whole cache every step.
+
+Codebooks, frontends and MoE layers raise (later slices).
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import use_kernel
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import activation_fn, mlp, rmsnorm, rope
 from repro_torch.models.params import (check_supported, layer_period,
                                        num_groups, slot_kind)
@@ -124,6 +135,102 @@ def _attention_mixer(cfg: ModelConfig, kind: dict, p: dict, x: torch.Tensor, *,
     return _out_proj(p, out, x.dtype)
 
 
+def _ssm_inputs(cfg: ModelConfig, p: dict, h: torch.Tensor):
+    """The Mamba2 block's bf16 projections (``model.py:104-111``):
+    x_in, z (B,S,Di), b_in, c_in (B,S,N), dt_raw (B,S,H), and A (H,) f32.
+    x_in/z and b_in/c_in are views of one product each."""
+    b, s, d = h.shape
+    din, n = cfg.d_inner, cfg.ssm_state
+    xc = h.to(torch.bfloat16).reshape(b * s, d)
+
+    def proj(w):
+        return xc @ w.to(torch.bfloat16).reshape(d, -1)
+
+    xz = proj(p["w_xz"]).view(b, s, 2, din)
+    bc = proj(p["w_bc"]).view(b, s, 2, n)
+    dt_raw = proj(p["w_dt"]).view(b, s, cfg.ssm_heads)
+    A = -torch.exp(p["A_log"].float())
+    return xz[..., 0, :], xz[..., 1, :], bc[..., 0, :], bc[..., 1, :], dt_raw, A
+
+
+def _ssm_scan_inputs(cfg: ModelConfig, p: dict, x_in, b_in, c_in, dt_raw):
+    """Conv, silu and softplus over a whole prompt (``model.py:113-120``):
+    the scan's xh (B,S,H,P), dt (B,S,H) f32, B and C (B,S,N) contiguous,
+    and the conv states (the last K-1 inputs of x, B, C)."""
+    b, s, _ = x_in.shape
+    x_conv, st_x = ssm_mod.causal_conv(x_in, p["conv_x"].to(x_in.dtype))
+    b_conv, st_b = ssm_mod.causal_conv(b_in, p["conv_b"].to(b_in.dtype))
+    c_conv, st_c = ssm_mod.causal_conv(c_in, p["conv_c"].to(c_in.dtype))
+    x_conv, b_conv, c_conv = F.silu(x_conv), F.silu(b_conv), F.silu(c_conv)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    xh = x_conv.view(b, s, cfg.ssm_heads, cfg.ssm_head_dim)
+    return xh, dt, b_conv.contiguous(), c_conv.contiguous(), (st_x, st_b, st_c)
+
+
+def _ssm_sequence(cfg: ModelConfig, p: dict, x_in, b_in, c_in, dt_raw, A, *,
+                  impl: str):
+    """Conv, silu, softplus and the SSD scan over a whole prompt
+    (``model.py:113-126``). Returns (y (B,S,Di) f32 with the D skip, the
+    final state (B,H,P,N) f32, the conv states). On the card the scan is
+    the CUDA ``ssd_scan`` kernel at any length; on the CPU, or with
+    ``impl="ref"``, it is ``ssd_chunked``. The kernel's y is f32, as the
+    Pallas kernel's; the JAX prefill and default forward call
+    ``ssd_chunked``, whose y has x's dtype (bf16), so the kernel's y is
+    rounded to it as well."""
+    b, s, _ = x_in.shape
+    xh, dt, b_conv, c_conv, states = _ssm_scan_inputs(cfg, p, x_in, b_in, c_in, dt_raw)
+    if use_kernel(impl, xh):
+        y, hfin = ssd_ops.ssd_scan(xh, dt, A, b_conv, c_conv, chunk=cfg.ssm_chunk)
+        y = y.to(xh.dtype)
+    else:
+        y, hfin = ssm_mod.ssd_chunked(xh, dt, A, b_conv, c_conv, chunk=cfg.ssm_chunk)
+    y = y + xh.float() * p["D"].float()[None, None, :, None]
+    return y.reshape(b, s, cfg.d_inner), hfin, states
+
+
+def _ssm_step(cfg: ModelConfig, p: dict, x_in, b_in, c_in, dt_raw, A,
+              cache: dict) -> torch.Tensor:
+    """One decode token (``model.py:128-139``) for every row: the conv
+    and SSD recurrences advance one step and their new states are
+    written into ``cache`` in place (idle rows too, as JAX updates every
+    row). Returns y (B,1,Di) f32 with the D skip."""
+    b = x_in.shape[0]
+    x_c, cs_x = ssm_mod.causal_conv_step(x_in[:, 0], p["conv_x"].to(x_in.dtype), cache["conv_x"])
+    b_c, cs_b = ssm_mod.causal_conv_step(b_in[:, 0], p["conv_b"].to(b_in.dtype), cache["conv_b"])
+    c_c, cs_c = ssm_mod.causal_conv_step(c_in[:, 0], p["conv_c"].to(c_in.dtype), cache["conv_c"])
+    x_c, b_c, c_c = F.silu(x_c), F.silu(b_c), F.silu(c_c)
+    dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"].float())
+    xh = x_c.view(b, cfg.ssm_heads, cfg.ssm_head_dim)
+    yt, hnew = ssm_mod.ssd_decode_step(xh, dt, A, b_c, c_c, cache["h"])
+    for name, new in (("h", hnew), ("conv_x", cs_x), ("conv_b", cs_b), ("conv_c", cs_c)):
+        cache[name].copy_(new)
+    yt = yt + xh.float() * p["D"].float()[None, :, None]
+    return yt.reshape(b, 1, cfg.d_inner)
+
+
+def _ssm_out(cfg: ModelConfig, p: dict, y: torch.Tensor, z: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """Mamba2's gated RMSNorm ``rmsnorm(y * silu(z), norm)`` in f32 and
+    the bf16 out product (``model.py:141-146``)."""
+    b, s, din = y.shape
+    y = rmsnorm(y.float() * F.silu(z.float()), p["norm"], cfg.norm_eps)
+    out = y.to(torch.bfloat16).reshape(b * s, din) @ p["out"].to(torch.bfloat16)
+    return out.view(b, s, -1).to(dtype)
+
+
+def _ssm_mixer(cfg: ModelConfig, p: dict, x: torch.Tensor, *, impl: str,
+               cache: Optional[dict] = None) -> torch.Tensor:
+    """The Mamba2 block (``model.py:99-146``). With ``cache`` (one
+    layer's ``{"h","conv_x","conv_b","conv_c"}``) it is a decode step
+    that writes the states in place."""
+    x_in, z, b_in, c_in, dt_raw, A = _ssm_inputs(cfg, p, x)
+    if cache is None:
+        y, _, _ = _ssm_sequence(cfg, p, x_in, b_in, c_in, dt_raw, A, impl=impl)
+    else:
+        y = _ssm_step(cfg, p, x_in, b_in, c_in, dt_raw, A, cache)
+    return _ssm_out(cfg, p, y, z, x.dtype)
+
+
 def _ffn(cfg: ModelConfig, kind: dict, p: dict, x: torch.Tensor) -> torch.Tensor:
     if not kind["has_ffn"]:
         return x
@@ -134,14 +241,18 @@ def _ffn(cfg: ModelConfig, kind: dict, p: dict, x: torch.Tensor) -> torch.Tensor
 def apply_layer(cfg: ModelConfig, slot: int, p: dict, x: torch.Tensor, *,
                 positions, impl: str = "auto", cache: Optional[dict] = None,
                 pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One attention + dense-MLP layer. With ``cache`` (one layer's
-    ``{"k","v"}`` of shape (B,max_len,Hkv,hd)) it is a decode step that
+    """One layer: an attention or SSM mixer, then the dense MLP where the
+    config has one. With ``cache`` (one layer's ``{"k","v"}`` of shape
+    (B,max_len,Hkv,hd), or its SSM states) it is a decode step that
     writes the cache in place."""
     kind = slot_kind(cfg, slot)
     h = rmsnorm(x, p["norm1"]["scale"], cfg.norm_eps)
-    x = x + _attention_mixer(cfg, kind, p["attn"], h, positions=positions,
-                             impl=impl, cache=cache, pos=pos)
-    return _ffn(cfg, kind, p, x)
+    if kind["kind"] == "attn":
+        mix = _attention_mixer(cfg, kind, p["attn"], h, positions=positions,
+                               impl=impl, cache=cache, pos=pos)
+    else:
+        mix = _ssm_mixer(cfg, p["ssm"], h, impl=impl, cache=cache)
+    return _ffn(cfg, kind, p, x + mix)
 
 
 # ----------------------------------------------------------------------
@@ -174,13 +285,31 @@ def logits_for(cfg: ModelConfig, params: PyTree, hidden: torch.Tensor) -> torch.
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> Tuple[dict, ...]:
-    """A tuple of per-slot ``{"k","v"}`` of shape (G,B,max_len,Hkv,hd)."""
+    """A tuple of per-slot caches, each leaf with a leading G (groups):
+    ``{"k","v"}`` (G,B,max_len,Hkv,hd) for attention; for SSM the state
+    ``h`` (G,B,H,P,N), always f32, and ``conv_x`` (G,B,K-1,Di),
+    ``conv_b``/``conv_c`` (G,B,K-1,N) in ``dtype``
+    (``model.py:288-311``)."""
     check_supported(cfg)
     device = resolve_device(device)
-    shp = (num_groups(cfg), batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return tuple({"k": torch.zeros(shp, dtype=dtype, device=device),
-                  "v": torch.zeros(shp, dtype=dtype, device=device)}
-                 for _ in range(layer_period(cfg)))
+    g = num_groups(cfg)
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    slots = []
+    for slot in range(layer_period(cfg)):
+        if slot_kind(cfg, slot)["kind"] == "attn":
+            shp = (g, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+            slots.append({"k": zeros(*shp), "v": zeros(*shp)})
+        else:
+            k, n = cfg.ssm_conv, cfg.ssm_state
+            slots.append({
+                "h": zeros(g, batch, cfg.ssm_heads, cfg.ssm_head_dim, n, dt=torch.float32),
+                "conv_x": zeros(g, batch, k - 1, cfg.d_inner),
+                "conv_b": zeros(g, batch, k - 1, n),
+                "conv_c": zeros(g, batch, k - 1, n)})
+    return tuple(slots)
 
 
 def decode_step(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
@@ -193,7 +322,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     pos = torch.as_tensor(pos, device=x.device)
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
     for slot, g, p in _layers(cfg, params):
-        c = {"k": cache[slot]["k"][g], "v": cache[slot]["v"][g]}
+        c = {name: t[g] for name, t in cache[slot].items()}
         x = apply_layer(cfg, slot, p, x, positions=positions, impl=impl,
                         cache=c, pos=pos)
     x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
@@ -211,23 +340,43 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     power-of-two buckets): logits come from the token at ``length - 1``
     and ``next_pos`` is ``length``. Causal attention keeps the pad tail
     out of the real tokens, and decode masks cache rows ``>= pos``, so
-    the pad K/V are never read."""
+    the pad K/V are never read. SSM state runs through every position,
+    so a config with SSM layers takes exact-length prompts only.
+
+    An SSM layer keeps the final state and the conv inputs for decode;
+    where JAX runs ``ssd_chunked`` (``model.py:437``), the card runs the
+    CUDA ``ssd_scan`` kernel, which returns the final state too."""
     x = embed_tokens(cfg, params, tokens)
     b, s, _ = x.shape
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+    kinds = [slot_kind(cfg, slot) for slot in range(layer_period(cfg))]
+    if length is not None and int(length) != s and \
+            any(k["kind"] != "attn" for k in kinds):
+        raise ValueError(f"{cfg.name}: SSM layers need an exact-length prompt, "
+                         f"got length {length} of {s} tokens")
     positions = torch.arange(s, device=x.device)
     cache = init_cache(cfg, b, max_len, cache_dtype, x.device)
     for slot, g, p in _layers(cfg, params):
-        kind = slot_kind(cfg, slot)
+        kind, c = kinds[slot], cache[slot]
         h = rmsnorm(x, p["norm1"]["scale"], cfg.norm_eps)
-        q, k, v = _project_qkv(cfg, p["attn"], h, positions)
-        window = cfg.window_size if kind["local"] else None
-        out = attn_mod.attention(q, k, v, causal=True, window=window,
-                                 softcap=cfg.attn_logit_softcap, impl=impl)
-        x = x + _out_proj(p["attn"], out, x.dtype)
-        cache[slot]["k"][g, :, :s] = k
-        cache[slot]["v"][g, :, :s] = v
+        if kind["kind"] == "attn":
+            q, k, v = _project_qkv(cfg, p["attn"], h, positions)
+            window = cfg.window_size if kind["local"] else None
+            out = attn_mod.attention(q, k, v, causal=True, window=window,
+                                     softcap=cfg.attn_logit_softcap, impl=impl)
+            x = x + _out_proj(p["attn"], out, x.dtype)
+            c["k"][g, :, :s] = k
+            c["v"][g, :, :s] = v
+        else:
+            x_in, z, b_in, c_in, dt_raw, A = _ssm_inputs(cfg, p["ssm"], h)
+            y, hfin, (st_x, st_b, st_c) = _ssm_sequence(
+                cfg, p["ssm"], x_in, b_in, c_in, dt_raw, A, impl=impl)
+            x = x + _ssm_out(cfg, p["ssm"], y, z, x.dtype)
+            c["h"][g] = hfin
+            c["conv_x"][g] = st_x
+            c["conv_b"][g] = st_b
+            c["conv_c"][g] = st_c
         x = _ffn(cfg, kind, p, x)
     x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
     npos = s if length is None else int(length)

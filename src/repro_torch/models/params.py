@@ -5,8 +5,9 @@ of per-slot dicts whose tensors carry a leading ``G = L / period`` group
 dim. Layouts are the JAX ones: ``wq (D,H,hd)``, ``wo (H,hd,D)``,
 ``w_in (D,2,F)``, ``w_out (F,D)``. Master weights are f32.
 
-Only attention slots with a dense MLP exist in the port so far; MoE and
-SSM slots raise.
+Attention slots with a dense MLP and Mamba2 SSM slots (``w_xz (D,2,Di)``,
+``w_bc (D,2,N)``, ``w_dt (D,H)``, ``conv_* (K,·)``, ``out (Di,D)``) exist
+in the port so far; MoE slots, codebooks and frontends raise.
 """
 from __future__ import annotations
 
@@ -54,8 +55,6 @@ def check_supported(cfg: ModelConfig) -> None:
                                   "not ported yet")
     for slot in range(layer_period(cfg)):
         kind = slot_kind(cfg, slot)
-        if kind["kind"] != "attn":
-            raise NotImplementedError(f"{cfg.name}: SSM layers are not ported yet")
         if kind["moe"]:
             raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet")
 
@@ -65,6 +64,33 @@ def _normal(shape, std, generator, device):
     t = torch.empty(shape, dtype=torch.float32, device=device)
     t.normal_(0.0, 1.0, generator=generator)
     return t.mul_(std)
+
+
+def _init_ssm(cfg: ModelConfig, g: int, dense, ones, generator, device) -> dict:
+    """One SSM slot with the JAX distributions (``params.py:79-94,119-139``):
+    A = U[1, 16] stored as its log; dt_bias the inverse softplus of dt
+    log-uniform in [1e-3, 1e-1]; D and the gated norm's scale ones;
+    ``conv_*`` of fan-in ``ssm_conv``; the products of fan-in ``shape[0]``."""
+    d, din, n, h, k = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
+                       cfg.ssm_conv)
+
+    def uniform(lo, hi):
+        u = torch.empty((g, h), dtype=torch.float32, device=device)
+        return u.uniform_(lo, hi, generator=generator)
+
+    dt = torch.exp(uniform(0.0, 1.0) * (math.log(0.1) - math.log(1e-3))
+                   + math.log(1e-3))
+    return {"w_xz": dense((d, 2, din), d),
+            "w_bc": dense((d, 2, n), d),
+            "w_dt": dense((d, h), d),
+            "conv_x": dense((k, din), k),
+            "conv_b": dense((k, n), k),
+            "conv_c": dense((k, n), k),
+            "A_log": torch.log(uniform(1.0, 16.0)),
+            "D": ones(h),
+            "dt_bias": dt + torch.log(-torch.expm1(-dt)),
+            "norm": ones(din),
+            "out": dense((din, d), din)}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -91,11 +117,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     params: dict = {"embed": {"table": _normal(vshape, 0.02, generator, device)}}
     layers = []
     for slot in range(layer_period(cfg)):
-        p = {"norm1": {"scale": ones(d)},
-             "attn": {"wq": dense((d, hq, hd), d),
-                      "wk": dense((d, hkv, hd), d),
-                      "wv": dense((d, hkv, hd), d),
-                      "wo": dense((hq, hd, d), cfg.q_dim)}}
+        p: dict = {"norm1": {"scale": ones(d)}}
+        if slot_kind(cfg, slot)["kind"] == "attn":
+            p["attn"] = {"wq": dense((d, hq, hd), d),
+                         "wk": dense((d, hkv, hd), d),
+                         "wv": dense((d, hkv, hd), d),
+                         "wo": dense((hq, hd, d), cfg.q_dim)}
+        else:
+            p["ssm"] = _init_ssm(cfg, g, dense, ones, generator, device)
         if slot_kind(cfg, slot)["has_ffn"]:
             p["norm2"] = {"scale": ones(d)}
             p["mlp"] = {"w_in": dense((d, 2, f), d), "w_out": dense((f, d), f)}
@@ -108,18 +137,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+#: leaves that ``compute_copy`` keeps in f32
+F32_LEAVES = ("scale", "table", "A_log", "D", "dt_bias", "norm")
+
+
 def compute_copy(params: PyTree) -> PyTree:
     """A bf16 copy of every matrix, made once at load.
 
     The JAX model casts each f32 master weight to bf16 right before its
-    product (``model.py:62-64,94-95``, ``layers.py:94-99``); a copy cast
-    once holds the same values and saves the cast on every step. Norm
-    scales and the embedding table stay f32: ``rmsnorm`` reads scales in
-    f32, and ``embed_tokens`` gathers f32 rows and casts only those."""
+    product (``model.py:62-64,94-95,104-108``, ``layers.py:94-99``) and
+    the SSM conv weights to the bf16 activations' dtype (``:115-117``); a
+    copy cast once holds the same values and saves the cast on every
+    step. Norm scales, the embedding table and the SSM's ``A_log``,
+    ``D``, ``dt_bias`` and gated-norm ``norm`` stay f32: the JAX model
+    reads them in f32 (``model.py:111,119,127,143``), and
+    ``embed_tokens`` gathers f32 rows and casts only those."""
     def walk(node, name=""):
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, tuple):
             return tuple(walk(v, name) for v in node)
-        return node if name in ("scale", "table") else node.to(torch.bfloat16)
+        return node if name in F32_LEAVES else node.to(torch.bfloat16)
     return walk(params)

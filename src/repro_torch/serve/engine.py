@@ -2,13 +2,17 @@
 ``repro/serve/engine.py``: prefill + continuous-batching decode.
 
 Slot model: a fixed decode batch of ``slots``; each slot holds one
-request's cache rows. A new request is prefilled alone at a power-of-two
-bucketed length, its cache rows are copied into a free slot, and each
-decode step advances every active slot one token with per-row positions.
+request's cache rows (K/V, or SSM states). A new request is prefilled
+alone, at a power-of-two bucketed length for attention-only configs and
+at its exact length for configs with SSM layers; its cache rows are
+copied into a free slot, and each decode step advances every active slot
+one token with per-row positions.
 
-On the card, prefill runs the CUDA flash-attention kernel and decode the
-CUDA flash-decoding kernel (``impl="auto"``); on the CPU both take their
-plain versions.
+On the card (``impl="auto"``), attention prefill runs the CUDA
+flash-attention kernel and attention decode the CUDA flash-decoding
+kernel; SSM prefill runs the CUDA SSD-scan kernel and SSM decode the
+one-token recurrence in plain tensor ops. On the CPU every kernel takes
+its plain version.
 
 The synchronous ``ServeEngine`` is here without the simulated fabric
 (``fabric``, ``runtime``, ``time_model``) and without the staged
@@ -26,7 +30,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
-from repro_torch.models.params import compute_copy
+from repro_torch.models.params import compute_copy, layer_period, slot_kind
 
 
 @dataclasses.dataclass
@@ -67,9 +71,11 @@ class _EngineCore:
         self.pos = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        # bucketing needs causal attention's inert pad tail: every layer
-        # the port runs is attention (``init_cache`` raises on SSM)
-        self.bucket_prefill = bucket_prefill
+        # bucketing needs causal attention's inert pad tail; SSM state
+        # runs through every position, so those configs prefill exact.
+        attn_only = all(slot_kind(cfg, s)["kind"] == "attn"
+                        for s in range(layer_period(cfg)))
+        self.bucket_prefill = bucket_prefill and attn_only
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -105,8 +111,10 @@ class _EngineCore:
         return cache1, npos
 
     def _splice_cache(self, slot: int, row_cache):
-        """Copy a prefilled (batch=1) cache into slot ``slot``, in place.
-        (JAX's ``.at[:, slot].set`` builds a new cache instead.)"""
+        """Copy a prefilled (batch=1) cache into slot ``slot``, in place:
+        every leaf of a slot (K/V, or the SSM state ``h`` and the conv
+        states) has the batch at dim 1. (JAX's ``.at[:, slot].set`` builds
+        a new cache instead.)"""
         for dst, src in zip(self.cache, row_cache):
             for name in dst:
                 dst[name][:, slot].copy_(src[name][:, 0])

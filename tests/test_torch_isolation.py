@@ -22,6 +22,8 @@ from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_sequential_ref
 from repro_torch.models import model as TM
 from repro_torch.models.params import init_params
 from repro_torch.serve.engine import ServeEngine
@@ -62,16 +64,17 @@ def test_importing_port_loads_neither_jax_nor_repro():
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = get_config("internlm2-1.8b").reduced()
-    gen = torch.Generator()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        init_params(cfg, gen)
-    params = init_params(cfg, gen, device="cpu")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        ServeEngine(cfg, params)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        TM.init_cache(cfg, 2, 16)
-    assert ServeEngine(cfg, params, device="cpu").device.type == "cpu"
+    for arch in ("internlm2-1.8b", "mamba2-2.7b"):
+        cfg = get_config(arch).reduced()
+        gen = torch.Generator()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_params(cfg, gen)
+        params = init_params(cfg, gen, device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ServeEngine(cfg, params)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TM.init_cache(cfg, 2, 16)
+        assert ServeEngine(cfg, params, device="cpu").device.type == "cpu"
 
 
 def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
@@ -84,7 +87,15 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
     lens = torch.tensor([5])
     torch.testing.assert_close(decode_attention_kernel(q[:, :1], k, k, lens),
                                decode_attention(q[:, :1], k, k, lens), rtol=0, atol=0)
+    n0 = ssd_scan.launches
+    x, dt = q.to(torch.bfloat16), q[..., 0].abs()
+    a, bm = -torch.ones(4), k[:, :, 0].contiguous()
+    y, h = ssd_scan(x, dt, a, bm, bm, chunk=8)
+    y_ref, h_ref = ssd_chunked_ref(x.float(), dt, a, bm, bm, chunk=8)
+    assert y.dtype == torch.float32
+    torch.testing.assert_close((y, h), (y_ref, h_ref), rtol=0, atol=0)
     assert (flash_attention.launches, decode_attention_kernel.launches) == before
+    assert ssd_scan.launches == n0
 
 
 def test_unsupported_configs_raise():
@@ -92,7 +103,7 @@ def test_unsupported_configs_raise():
     with pytest.raises(NotImplementedError, match="MoE"):
         init_params(cfg, torch.Generator(), device="cpu")
     with pytest.raises(KeyError):
-        get_config("mamba2-2.7b")
+        get_config("jamba-1.5-large-398b")
 
 
 @pytest.mark.gpu
@@ -129,3 +140,18 @@ def test_kernels_match_plain_versions_on_card():
     ref = decode_attention(q, kc, vc, lens)
     assert (out[:2] - ref[:2]).abs().max().item() < 2e-5
     assert out[2].abs().max().item() == 0.0          # no visible key: 0, not NaN
+    # the SSD scan: an f32 SSD_CASES case, and a ragged length in bf16
+    # against the recurrence (5e-3, tests/test_kernels.py)
+    for (b, s, h, p, n, chunk), dtype in (((2, 256, 8, 16, 32, 64), torch.float32),
+                                         ((1, 100, 3, 64, 128, 128), torch.bfloat16)):
+        x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+        dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+        a = -torch.exp(torch.randn((h,), generator=gen, device=dev))
+        bm, cm = (torch.randn((b, s, n), generator=gen, device=dev).to(dtype) for _ in range(2))
+        n0 = ssd_scan.launches
+        y, hf = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ssd_scan.launches == n0 + 1
+        y_ref, h_ref = ssd_sequential_ref(x.float(), dt, a, bm, cm)
+        assert (y - y_ref).abs().max().item() < 5e-3
+        assert (hf - h_ref).abs().max().item() < 5e-3

@@ -1,7 +1,8 @@
-"""The port's attention kernels (their plain versions, on the CPU) against
-the JAX package: the Pallas kernels in interpret mode and the plain
-functions the JAX model calls. Inputs are made with numpy from a seed
-and handed to both frameworks."""
+"""The port's kernels (their plain versions, on the CPU) against the JAX
+package: the Pallas kernels in interpret mode and the plain functions
+the JAX model calls (attention, and the SSD scan with the rest of
+``models/ssm.py``). Inputs are made with numpy from a seed and handed to
+both frameworks."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,10 +12,14 @@ from repro.kernels.decode_attention.ops import decode_attention_kernel as jax_de
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.models.attention import attention_ref as jax_attention_ref
 from repro.models.attention import decode_attention as jax_decode_attention
+from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan
+from repro.models import ssm as jssm
 from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models import attention as attn
-from test_kernels import DEC_CASES, FA_CASES
+from repro_torch.models import ssm as tssm
+from test_kernels import DEC_CASES, FA_CASES, SSD_CASES
 
 
 def _normal(rng, shape):
@@ -119,3 +124,116 @@ def test_dispatch_takes_plain_versions_on_cpu():
             attn.decode_attention(q[:, :1], k, k, torch.tensor([3])), rtol=0, atol=0)
     with pytest.raises(ValueError):
         attn.attention(q, k, k, impl="pallas")
+
+
+# ----------------------------------------------------------------------
+# SSD scan and the rest of models/ssm.py
+# ----------------------------------------------------------------------
+
+SSD_TOL = 5e-3          # tests/test_kernels.py: the scan against the recurrence
+CHUNKED_TOL = 2e-3      # tests/test_ssm.py: chunked against sequential, f32
+
+
+def _ssd_inputs(rng, b, s, h, p, n):
+    """x, dt (softplus, > 0), A (< 0), Bm, C as f32 numpy, as test_ssm.py
+    draws them."""
+    x = _normal(rng, (b, s, h, p))
+    dt = np.log1p(np.exp(_normal(rng, (b, s, h)))).astype(np.float32)
+    A = (-np.exp(_normal(rng, (h,)))).astype(np.float32)
+    return x, dt, A, _normal(rng, (b, s, n)), _normal(rng, (b, s, n))
+
+
+def _both(arrays):
+    return [jnp.asarray(a) for a in arrays], [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_plain_vs_pallas(case):
+    b, s, h, p, n, L, ht = case
+    arrs_j, arrs_t = _both(_ssd_inputs(np.random.default_rng(5), b, s, h, p, n))
+    yj, hj = jax_ssd_scan(*arrs_j, chunk=L, head_tile=ht)
+    yt, htt = ssd_scan(*arrs_t, chunk=L)
+    assert yt.dtype == htt.dtype == torch.float32
+    assert yt.shape == (b, s, h, p) and htt.shape == (b, h, p, n)
+    _check(f"ssd_scan y vs Pallas {case}", _err(yj, yt), SSD_TOL)
+    _check(f"ssd_scan h vs Pallas {case}", _err(hj, htt), SSD_TOL)
+
+
+@pytest.mark.parametrize("s,chunk", [(37, 16), (100, 32), (129, 16), (129, 32)])
+def test_ssd_scan_ragged_vs_ssd_ref(s, chunk):
+    """Lengths off the chunk (the engine's exact-length SSM prefill),
+    which the Pallas kernel cannot take, against the recurrence; x, B, C
+    in bf16 as the model gives them."""
+    x, dt, A, Bm, C = _ssd_inputs(np.random.default_rng(6), 2, s, 3, 8, 16)
+    xj, xt = _pair(x, True)
+    bj, bt = _pair(Bm, True)
+    cj, ct = _pair(C, True)
+    yj, hj = jssm.ssd_ref(xj.astype(jnp.float32), jnp.asarray(dt), jnp.asarray(A),
+                          bj, cj)
+    yt, htt = ssd_scan(xt, torch.from_numpy(dt), torch.from_numpy(A), bt, ct,
+                       chunk=chunk)
+    assert yt.dtype == torch.float32
+    _check(f"ssd_scan ragged S={s} chunk={chunk} y vs ssd_ref", _err(yj, yt), SSD_TOL)
+    _check(f"ssd_scan ragged S={s} chunk={chunk} h vs ssd_ref", _err(hj, htt), SSD_TOL)
+
+
+@pytest.mark.parametrize("case", [(2, 64, 4, 8, 16, 16), (1, 100, 3, 16, 8, 32),
+                                  (2, 256, 8, 16, 32, 64)])
+def test_ssd_chunked_vs_jax(case):
+    """tests/test_ssm.py's CASES: the port's chunked scan against JAX's,
+    and its sequential reference against JAX's."""
+    b, s, h, p, n, L = case
+    arrs_j, arrs_t = _both(_ssd_inputs(np.random.default_rng(7), b, s, h, p, n))
+    yj, hj = jssm.ssd_chunked(*arrs_j, chunk=L)
+    yt, htt = tssm.ssd_chunked(*arrs_t, chunk=L)
+    _check(f"ssd_chunked y vs JAX {case}", _err(yj, yt), CHUNKED_TOL)
+    _check(f"ssd_chunked h vs JAX {case}", _err(hj, htt), CHUNKED_TOL)
+    yj, hj = jssm.ssd_ref(*arrs_j)
+    yt, htt = tssm.ssd_ref(*arrs_t)
+    _check(f"ssd_ref y vs JAX {case}", _err(yj, yt), CHUNKED_TOL)
+    _check(f"ssd_ref h vs JAX {case}", _err(hj, htt), CHUNKED_TOL)
+
+
+def test_ssd_prefill_decode_split_vs_jax():
+    """tests/test_ssm.py:30-40: the state after a chunked prefill of S
+    tokens continues the recurrence in a decode step."""
+    b, s, h, p, n = 1, 32, 2, 8, 4
+    x, dt, A, Bm, C = _ssd_inputs(np.random.default_rng(8), b, s + 1, h, p, n)
+    (xj, dtj, Aj, bj, cj), (xt, dtt, At, bt, ct) = _both((x, dt, A, Bm, C))
+    y_all, _ = jssm.ssd_ref(xj, dtj, Aj, bj, cj)
+    _, hmid = tssm.ssd_chunked(xt[:, :s], dtt[:, :s], At, bt[:, :s], ct[:, :s], chunk=8)
+    y_t, h_t = tssm.ssd_decode_step(xt[:, s], dtt[:, s], At, bt[:, s], ct[:, s], hmid)
+    _check("ssd_chunked -> ssd_decode_step vs JAX ssd_ref", _err(y_all[:, s], y_t),
+           CHUNKED_TOL)
+    _, hmid_j = jssm.ssd_chunked(xj[:, :s], dtj[:, :s], Aj, bj[:, :s], cj[:, :s], chunk=8)
+    yj, hj = jssm.ssd_decode_step(xj[:, s], dtj[:, s], Aj, bj[:, s], cj[:, s], hmid_j)
+    _check("ssd_decode_step y vs JAX", _err(yj, y_t), CHUNKED_TOL)
+    _check("ssd_decode_step h vs JAX", _err(hj, h_t), CHUNKED_TOL)
+
+
+@pytest.mark.parametrize("s", [16, 2])
+def test_causal_conv_and_step_vs_jax(s):
+    """The conv over a prompt and its returned state (the last K-1
+    inputs, the zero initial state included when S < K-1), then decode
+    steps that continue it: against JAX, f32 to 1e-5, and with bf16
+    inputs and weights against an f32 state (the model's decode with an
+    f32 cache), where both promote to f32."""
+    b, ch, k = 2, 8, 4
+    rng = np.random.default_rng(9)
+    x, w = _normal(rng, (b, s + 3, ch)), _normal(rng, (k, ch))
+    yj, stj = jssm.causal_conv(jnp.asarray(x[:, :s]), jnp.asarray(w))
+    yt, stt = tssm.causal_conv(torch.from_numpy(x[:, :s]), torch.from_numpy(w))
+    assert stt.shape == (b, k - 1, ch)
+    _check(f"causal_conv y S={s} vs JAX", _err(yj, yt), 1e-5)
+    _check(f"causal_conv state S={s} vs JAX", _err(stj, stt), 1e-5)
+    for bf16 in (False, True):
+        xj, xt = _pair(x, bf16)
+        wj, wt = _pair(w, bf16)
+        sj, st = stj, stt
+        for t in range(s, s + 3):
+            oj, sj = jssm.causal_conv_step(xj[:, t], wj, sj)
+            ot, st = tssm.causal_conv_step(xt[:, t], wt, st)
+            assert ot.dtype == torch.float32 and st.dtype == torch.float32
+            _check(f"causal_conv_step S={s} t={t} bf16={bf16} vs JAX", _err(oj, ot), 1e-5)
+            _check(f"causal_conv_step state S={s} t={t} bf16={bf16} vs JAX",
+                   _err(sj, st), 1e-5)

@@ -1,4 +1,5 @@
-"""The port's reduced internlm2 against the JAX model, from bridged params.
+"""The port's reduced internlm2 and mamba2 against the JAX model, from
+bridged params.
 
 The JAX params are made with ``jax.random`` and handed to the port as
 numpy; tokens and caches are made with numpy from a seed. Model outputs
@@ -19,6 +20,7 @@ from repro_torch.bridge import cache_from_numpy, params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
+from repro_torch.models.params import compute_copy, init_params
 
 REL = 4e-2
 
@@ -138,3 +140,101 @@ def test_rmsnorm_rope_mlp_f32():
                  TL.activation_fn("silu")).numpy()
     _check("mlp (bf16 inside), max abs / max |ref|",
            float(np.abs(out - ref).max() / np.abs(ref).max()), 2 ** -7 + 1e-9)
+
+
+# ----------------------------------------------------------------------
+# reduced mamba2-2.7b: attention-free SSM layers
+# ----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ssm_lm():
+    cfg = get_config("mamba2-2.7b").reduced()
+    jcfg = jax_get_config("mamba2-2.7b").reduced()
+    jparams = jax.jit(lambda k: jax_init_params(jcfg, k)[0])(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+    return cfg, jcfg, jparams, tparams
+
+
+def test_ssm_params_layout_and_init(ssm_lm):
+    """The port's own init draws the JAX distributions in the JAX layout;
+    ``compute_copy`` keeps A_log, D, dt_bias and norm in f32."""
+    cfg, _, jparams, tparams = ssm_lm
+    jssm = jparams["layers"][0]["ssm"]
+    own = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tssm = own["layers"][0]["ssm"]
+    assert set(tssm) == set(jssm)
+    for name, leaf in jssm.items():
+        assert tuple(tssm[name].shape) == leaf.shape, name
+    assert sum(t.numel() for t in jax.tree.leaves(own)) == cfg.param_count()
+    a = torch.exp(tssm["A_log"])
+    assert bool(((a >= 1) & (a <= 16)).all())
+    dt = torch.nn.functional.softplus(tssm["dt_bias"])
+    assert bool(((dt >= 1e-3 * (1 - 1e-5)) & (dt <= 0.1 * (1 + 1e-5))).all())
+    assert bool((tssm["D"] == 1).all() and (tssm["norm"] == 1).all())
+    for name, fan_in in (("conv_x", cfg.ssm_conv), ("w_xz", cfg.d_model),
+                         ("out", cfg.d_inner)):
+        std = float(tssm[name].std())
+        assert abs(std * fan_in ** 0.5 - 1) < 0.2, (name, std)
+    copy = compute_copy(own)["layers"][0]["ssm"]
+    assert {n for n, t in copy.items() if t.dtype == torch.float32} == \
+        {"A_log", "D", "dt_bias", "norm"}
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+def test_ssm_forward_hidden(ssm_lm, impl):
+    """S = 32, a multiple of the reduced chunk (16), so JAX's
+    ``impl="pallas"`` runs the Pallas SSD kernel (interpret mode)."""
+    cfg, jcfg, jparams, tparams = ssm_lm
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    ref = JM.forward(jcfg, jparams, jnp.asarray(tokens), impl=impl, remat="none").hidden
+    out = TM.forward(cfg, tparams, torch.from_numpy(tokens)).hidden
+    assert out.dtype == torch.bfloat16 and out.shape == (2, 32, cfg.d_model)
+    _check(f"mamba2 forward hidden vs impl={impl}, rel", _rel(ref, out), REL)
+
+
+@pytest.mark.parametrize("s", [21, 32, 2])
+def test_ssm_prefill(ssm_lm, s):
+    """Exact-length prompts (ragged, a chunk multiple, shorter than the
+    conv): logits, the final state h and the conv states."""
+    cfg, jcfg, jparams, tparams = ssm_lm
+    max_len = 64
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, s)).astype(np.int32)
+    jl, jcache, jpos = JM.prefill(jcfg, jparams, jnp.asarray(tokens), max_len,
+                                  impl="ref", cache_dtype=jnp.float32)
+    tl, tcache, tpos = TM.prefill(cfg, tparams, torch.from_numpy(tokens), max_len,
+                                  cache_dtype=torch.float32)
+    assert tpos == int(jpos) == s
+    _check(f"mamba2 prefill S={s} logits, rel", _rel(jl, tl), REL)
+    for js, ts in zip(jcache, tcache):
+        assert set(ts) == {"h", "conv_x", "conv_b", "conv_c"} == set(js)
+        for name in ts:
+            assert ts[name].shape == js[name].shape and ts[name].dtype == torch.float32
+            _check(f"mamba2 prefill S={s} cache {name}, rel", _rel(js[name], ts[name]), REL)
+    with pytest.raises(ValueError, match="exact-length"):
+        TM.prefill(cfg, tparams, torch.from_numpy(tokens), max_len, length=s - 1)
+
+
+@pytest.mark.parametrize("pos", [13, (5, 30, 0)], ids=["scalar", "per_row"])
+def test_ssm_decode_step(ssm_lm, pos):
+    """One token against random states: logits and every new state, the
+    states written in place in every row (JAX advances idle rows too)."""
+    cfg, jcfg, jparams, tparams = ssm_lm
+    b, max_len = (2 if isinstance(pos, int) else len(pos)), 32
+    rng = np.random.default_rng(6)
+    jcache, _ = JM.init_cache(jcfg, b, max_len, jnp.float32)
+    cache_np = jax.tree.map(
+        lambda x: (rng.standard_normal(x.shape) * 0.5).astype(np.float32), jcache)
+    tokens = rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
+    pos_np = np.asarray(pos, np.int32)
+    jl, jnew = JM.decode_step(jcfg, jparams, jnp.asarray(tokens),
+                              jax.tree.map(jnp.asarray, cache_np), jnp.asarray(pos_np))
+    tcache = cache_from_numpy(cache_np, device="cpu")
+    tl, tnew = TM.decode_step(cfg, tparams, torch.from_numpy(tokens), tcache,
+                              torch.from_numpy(pos_np))
+    assert tnew is tcache                       # written in place
+    _check(f"mamba2 decode_step logits pos={pos}, rel", _rel(jl, tl), REL)
+    for js, ts, old in zip(jnew, tnew, cache_np):
+        for name in ("h", "conv_x", "conv_b", "conv_c"):
+            assert not np.array_equal(ts[name].numpy(), old[name])
+            _check(f"mamba2 decode_step state {name} pos={pos}, rel",
+                   _rel(js[name], ts[name]), REL)

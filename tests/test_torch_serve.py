@@ -1,5 +1,7 @@
 """The port's ServeEngine on the CPU against the JAX ServeEngine, on the
-request sets of ``tests/test_serve.py``, from bridged params.
+request sets of ``tests/test_serve.py``, from bridged params, for
+reduced internlm2 (bucketed prefill) and reduced mamba2 (exact-length
+prefill of SSM layers).
 
 Greedy tokens must be identical wherever the choice is clear: where the
 two engines part, the JAX model's margin between its top two logits at
@@ -32,13 +34,29 @@ REQUEST_SETS = {
 }
 
 
+ARCHS = ("internlm2-1.8b", "mamba2-2.7b")
+
+
 @pytest.fixture(scope="module")
-def lm():
-    cfg = get_config("internlm2-1.8b").reduced()
-    jcfg = jax_get_config("internlm2-1.8b").reduced()
-    jparams = jax.jit(lambda k: jax_init_params(jcfg, k)[0])(jax.random.PRNGKey(0))
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
-    return cfg, jcfg, jparams, tparams
+def lms():
+    """Reduced (cfg, JAX cfg, JAX params, bridged params) per arch, built
+    once per module on first use."""
+    built = {}
+
+    def get(arch):
+        if arch not in built:
+            cfg = get_config(arch).reduced()
+            jcfg = jax_get_config(arch).reduced()
+            jparams = jax.jit(lambda k: jax_init_params(jcfg, k)[0])(jax.random.PRNGKey(0))
+            tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+            built[arch] = cfg, jcfg, jparams, tparams
+        return built[arch]
+    return get
+
+
+@pytest.fixture(scope="module")
+def lm(lms):
+    return lms("internlm2-1.8b")
 
 
 def _prompts(cfg, seed, spec):
@@ -60,13 +78,14 @@ def _serve_both(lm, slots, seed, spec):
     jdone, tdone = jeng.run(), teng.run()
     assert [r.rid for r in tdone] == [r.rid for r in jdone]
     assert teng.stats == jeng.stats
-    return jreqs, treqs
+    return jreqs, treqs, teng.stats
 
 
 def _teacher_forced(lm, reqs):
     """Per-request logits (steps, V) of both models along prompt +
     out_tokens[:-1]. All sequences go in one right-padded batch: causal
-    attention keeps the pad out of the real positions."""
+    attention, and the SSM's causal conv and recurrence, keep the pad
+    after a sequence's last real token out of the positions read."""
     cfg, jcfg, jparams, tparams = lm
     seqs = [np.concatenate([r.prompt, np.asarray(r.out_tokens[:-1], np.int32)])
             for r in reqs]
@@ -82,16 +101,25 @@ def _teacher_forced(lm, reqs):
             for i, (r, seq) in enumerate(zip(reqs, seqs))]
 
 
-@pytest.mark.parametrize("name", list(REQUEST_SETS))
-def test_engine_matches_jax_engine(lm, name):
+@pytest.mark.parametrize(
+    "arch,name", [(a, n) for a in ARCHS for n in REQUEST_SETS],
+    ids=[n if a == ARCHS[0] else f"{a}-{n}" for a in ARCHS for n in REQUEST_SETS])
+def test_engine_matches_jax_engine(lms, arch, name):
+    """Same retirement order and stats (for mamba2: no padded tokens, one
+    prefill "compilation" per distinct prompt length), tokens and
+    teacher-forced logits within the tolerance."""
+    lm = lms(arch)
     slots, seed, spec = REQUEST_SETS[name]
-    jreqs, treqs = _serve_both(lm, slots, seed, spec)
+    jreqs, treqs, stats = _serve_both(lm, slots, seed, spec)
+    if arch == "mamba2-2.7b":
+        assert stats["prefill_padded_tokens"] == 0
+        assert stats["prefill_compilations"] == len({plen for plen, _ in spec})
     forced = _teacher_forced(lm, jreqs)
     for jr, tr, (_, new), (jl, tl) in zip(jreqs, treqs, spec, forced):
         assert tr.done and len(tr.out_tokens) == new == len(jr.out_tokens)
         scale = np.abs(jl).max(axis=-1)
         err = float((np.abs(jl - tl).max(axis=-1) / scale).max())
-        print(f"[parity] engine {name} rid {jr.rid} teacher-forced logits, rel: "
+        print(f"[parity] engine {arch} {name} rid {jr.rid} teacher-forced logits, rel: "
               f"err {err:.3g} (tol {REL})")
         assert err < REL
         parted = [i for i, (a, b) in enumerate(zip(jr.out_tokens, tr.out_tokens)) if a != b]
@@ -128,12 +156,13 @@ def test_launcher_serves_on_cpu(capsys):
     """``python -m repro_torch.launch.serve`` at the reduced size on the
     CPU: every request finishes, and the plain versions launch no kernel."""
     from repro_torch.launch import serve as launch_serve
-    reqs = launch_serve.main(["--arch", "internlm2-1.8b", "--reduced", "--device", "cpu",
-                              "--requests", "3", "--max-new", "3", "--slots", "2"])
-    assert [len(r.out_tokens) for r in reqs] == [3, 3, 3]
-    out = capsys.readouterr().out
-    assert "[serve] 3 requests, 9 tokens" in out
-    assert "flash_attention=0 decode_attention=0" in out
+    for arch in ARCHS:
+        reqs = launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                                  "--requests", "3", "--max-new", "3", "--slots", "2"])
+        assert [len(r.out_tokens) for r in reqs] == [3, 3, 3]
+        out = capsys.readouterr().out
+        assert "[serve] 3 requests, 9 tokens" in out
+        assert "flash_attention=0 decode_attention=0 ssd_scan=0" in out
 
 
 def test_engine_sampling_uses_its_generator(lm):
