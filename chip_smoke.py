@@ -16,10 +16,13 @@ nothing of JAX. Phases, each fatal on failure:
              (2e-2, and within half a bf16 step of the f32 result plus
              2^-16 max|v|), the SSD scan in f32 against the sequential
              recurrence (5e-3 on y and on the state, also at ragged
-             lengths), and the main paths' shapes; kernel, plain version
-             and the library yardstick where one PyTorch call computes
-             the same function (``scaled_dot_product_attention``, which
-             the port never calls) timed with CUDA events;
+             lengths), int8 quantize / dequantize bit-equal (q, scales
+             and the dequantized values, f32 and bf16 in and out, n = 1,
+             255, 257, 1,000,003 and the path's 805,306,368), and the
+             main paths' shapes; kernel, plain version and the library
+             yardstick where one PyTorch call computes the same function
+             (``scaled_dot_product_attention``, ``torch.mul``, which the
+             port never calls) timed with CUDA events;
 4. serve   - full-width internlm2-1.8b (24 layers), then full-width
              mamba2-2.7b (64 layers), random weights from seed 0, each
              serves 8 greedy requests through ``ServeEngine``, once
@@ -33,7 +36,17 @@ nothing of JAX. Phases, each fatal on failure:
              decode steps agree between kernels and plain versions; for
              mamba2, along a ragged prompt, each layer's scan and mixer
              output with the kernel agree with the plain versions;
-             ``torch.profiler`` breaks down a step.
+             ``torch.profiler`` breaks down a step;
+5. train   - full-width internlm2-1.8b (24 layers), random init from seed
+             0, trains 3 steps of 8 x 4096 tokens (2 microbatches) from
+             the seed-0 ``TokenPipeline`` through the port's ``Trainer``,
+             first with int8 AdamW moments, then with f32 moments; the
+             int8 run's launch counts (set to 0 just before it) show
+             every moment went through the quantize kernel at init and
+             each step and through the dequantize kernel each step, and
+             no attention or SSD kernel ran; every loss is finite, the
+             first equal in both runs and the others within rel 1e-2;
+             ``torch.profiler`` breaks down a fourth int8 step.
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is
@@ -53,6 +66,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12             # dense bf16 tensor cores
 F32_FLOPS = 67e12               # f32 outside the tensor cores
@@ -75,6 +89,13 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # path) leave at most 2^-18 max|v|, weights rounded to bf16 about 2^-9
 EXCESS_TOL = 2.0 ** -16
 MODEL_REL_TOL = 4e-2            # as tests/test_models.py: bf16 rounds differently
+# K4: n = 1 and the ragged 255 / 257 / 1,000,003, and the path shape,
+# internlm2-1.8b's largest leaf layers.mlp.w_in (24, 2048, 2, 8192)
+QUANT_SIZES = (1, 255, 257, 1_000_003)
+QUANT_PATH_N = 24 * 2048 * 2 * 8192
+# the train phase: train_4k's sequence, global batch 8 in 2 microbatches
+TRAIN = dict(arch="internlm2-1.8b", seq=4096, batch=8, microbatch=2, steps=3, lr=3e-4)
+LOSS_REL_TOL = 1e-2             # int8 against f32 moments, every step
 # K3 inside each mamba2 layer, kernel vs plain, relative to the largest
 # plain magnitude: y and state in f32, about 5x the largest readings on an
 # H100 (1.8e-5, 9.6e-6); the mixer output after bf16, two bf16 steps of
@@ -270,7 +291,72 @@ def phase_kernels(torch, dev):
           f"{nbytes(x, dt, a, bm, cm, y, hf) / 1e6:.2f} MB)")
     rows["ssd_scan"] = dict(max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b_ms,
                             bound_by=b_by, library_ms=None)
+    rows.update(check_quant(torch, randn, flush))
     del flush
+    return rows
+
+
+def check_quant(torch, randn, flush):
+    """K4a / K4b against their plain versions: q, the scales and the
+    dequantized values bit-equal, the f32 round trip within half a step
+    of x per block (plus 2^-22 |x| for its two f32 roundings); timed at
+    the path shape."""
+    from repro_torch.kernels.quant.ops import dequantize, quantize
+    from repro_torch.kernels.quant.ref import dequantize_flat_ref, quantize_flat_ref
+
+    def same(a, b):
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.view(torch.int16 if a.dtype == torch.bfloat16 else a.dtype),
+            b.view(torch.int16 if b.dtype == torch.bfloat16 else b.dtype))
+
+    def check(x, what):
+        n = x.numel()
+        q, s = quantize(x)
+        qr, sr = quantize_flat_ref(x)
+        if not (same(q, qr) and torch.equal(s.view(torch.int32), sr.view(torch.int32))):
+            raise AssertionError(f"quantize {what}: q differs in {(q != qr).sum().item()}, "
+                                 f"scale in {(s != sr).sum().item()} places")
+        worst = 0.0
+        for dt in (torch.float32, torch.bfloat16):
+            d = dequantize(q, s, (n,), dt)
+            if not same(d, dequantize_flat_ref(q, s, (n,), dt)):
+                raise AssertionError(f"dequantize {what} to {dt} differs from the plain version")
+            if dt == torch.float32:
+                step = s.repeat_interleave(256)[:n]
+                xf = x.float()
+                excess = ((d - xf).abs() - 0.5 * step - 2.0 ** -22 * xf.abs()).max().item()
+                worst = max(worst, excess)
+                if excess > 0:
+                    raise AssertionError(f"round trip {what} exceeds half a step by {excess}")
+        print(f"[kernels] quant {what}: q, scales and dequantized f32/bf16 bit-equal to the "
+              f"plain versions; round trip within half a step (largest excess {worst:.3g})")
+
+    for n in QUANT_SIZES:
+        for dtype in (torch.float32, torch.bfloat16):
+            check(randn((n,), dtype), f"n={n} {dtype}")
+    x = randn((QUANT_PATH_N,), torch.float32)
+    check(x, f"path n={QUANT_PATH_N} f32 (w_in)")
+    q, s = quantize(x)
+    rows = {}
+    ms = cuda_ms(lambda: quantize(x), flush=flush)
+    plain = cuda_ms(lambda: quantize_flat_ref(x), flush=flush)
+    b_ms, b_by = bound(nbytes(x, q, s), 2.0 * x.numel(), F32_FLOPS)
+    print(f"[kernels] quantize path n={QUANT_PATH_N} f32: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by}; "
+          f"{nbytes(x, q, s) / 1e9:.3f} GB)")
+    rows["quantize"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=None)
+    del x
+    d = dequantize(q, s, (QUANT_PATH_N,))
+    ms = cuda_ms(lambda: dequantize(q, s, (QUANT_PATH_N,)), flush=flush)
+    plain = cuda_ms(lambda: dequantize_flat_ref(q, s, (QUANT_PATH_N,)), flush=flush)
+    lib = cuda_ms(lambda: torch.mul(q, s[:, None]), flush=flush)
+    b_ms, b_by = bound(nbytes(q, s, d), 1.0 * d.numel(), F32_FLOPS)
+    print(f"[kernels] dequantize path n={QUANT_PATH_N} to f32: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, torch.mul {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{nbytes(q, s, d) / 1e9:.3f} GB)")
+    rows["dequantize"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=lib)
     return rows
 
 
@@ -318,9 +404,11 @@ def launch_counters():
     """Each kernel wrapper by name; ``.launches`` is its launch count."""
     from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.quant.ops import dequantize, quantize
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     return {"flash_attention": flash_attention,
-            "decode_attention": decode_attention_kernel, "ssd_scan": ssd_scan}
+            "decode_attention": decode_attention_kernel, "ssd_scan": ssd_scan,
+            "quantize": quantize, "dequantize": dequantize}
 
 
 def phase_serve(torch, dev, arch, path_kernels):
@@ -407,7 +495,7 @@ def phase_serve(torch, dev, arch, path_kernels):
     n_attn, n_ssm = kinds.count("attn"), len(kinds) - kinds.count("attn")
     expect = {"flash_attention": n_attn * len(reqs),
               "decode_attention": n_attn * (eng.stats["decode_steps"] - steps0),
-              "ssd_scan": n_ssm * len(reqs)}
+              "ssd_scan": n_ssm * len(reqs), "quantize": 0, "dequantize": 0}
     if launches != expect:
         raise AssertionError(f"{arch} launches {launches}, not one per layer and "
                              f"request or decode step: {expect}")
@@ -529,6 +617,125 @@ def profile_serve(torch, eng, cfg, rng):
     eng.run()
 
 
+def phase_train(torch, dev):
+    """Train full-width internlm2-1.8b for TRAIN["steps"] steps through the
+    port's ``Trainer``, with int8 and then f32 AdamW moments. Returns the
+    int8 run's launch counts."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.train import build
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.trainer import Trainer
+
+    cfg = get_config(TRAIN["arch"])
+    shape = ShapeConfig("train_4k_b8", TRAIN["seq"], TRAIN["batch"], "train")
+    steps = TRAIN["steps"]
+    tokens = shape.global_batch * shape.seq_len
+    losses, launches = {}, {}
+    for moments in ("int8", "f32"):
+        run = RunConfig(learning_rate=TRAIN["lr"], total_steps=steps,
+                        warmup_steps=max(2, steps // 10), microbatch=TRAIN["microbatch"],
+                        moments_int8=moments == "int8")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        counters = launch_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        params, opt, step_fn = build(cfg, run, dev)
+        tr = Trainer(cfg, run, shape, step_fn=step_fn, params=params, opt_state=opt)
+        del params, opt
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        tr.run_steps(steps)
+        torch.cuda.synchronize()
+        launches[moments] = {name: fn.launches for name, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        hist = tr.history
+        losses[moments] = [h["loss"] for h in hist]
+        n_leaves = len(tree_leaves(tr.params))
+        print(f"[train] {cfg.name} {moments} moments: {cfg.num_layers} layers, "
+              f"{cfg.param_count() / 1e9:.3f}B params ({n_leaves} leaves), batch "
+              f"{shape.global_batch} x seq {shape.seq_len} in {run.microbatch} microbatches, "
+              f"remat {run.remat_policy}; set up in {setup:.2f} s")
+        for h in hist:
+            print(f"[train] {moments} step {h['step']}: loss {h['loss']:.6f} lr {h['lr']:.3g} "
+                  f"grad_norm {h['grad_norm']:.4g} {h['seconds'] * 1e3:.1f} ms "
+                  f"({tokens / h['seconds']:.1f} tok/s)")
+        steady = [h["seconds"] for h in hist[1:]]
+        print(f"[train] {moments}: steps 1..{steps - 1} {np.mean(steady) * 1e3:.1f} ms/step = "
+              f"{tokens / np.mean(steady):.1f} tok/s; peak memory {peak / 2 ** 30:.3f} GiB; "
+              f"kernel launches {launches[moments]}")
+        if not all(math.isfinite(x) for x in losses[moments]):
+            raise AssertionError(f"non-finite loss with {moments} moments: {losses[moments]}")
+        quant = 2 * n_leaves * (1 + steps) if moments == "int8" else 0
+        expect = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
+                  "quantize": quant, "dequantize": 2 * n_leaves * steps if quant else 0}
+        if launches[moments] != expect:
+            raise AssertionError(f"train launches {launches[moments]}, want {expect}: m and "
+                                 f"v of each leaf quantized at init and every step, "
+                                 f"dequantized every step, no attention or SSD kernel")
+        if moments == "int8":
+            profile_train(torch, tr)
+        del tr, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["int8"], losses["f32"])]
+    print(f"[train] int8 vs f32 moments: losses {losses['int8']} vs {losses['f32']}, rel "
+          f"{[f'{x:.3g}' for x in rel]} (tol {LOSS_REL_TOL}; step 0 equal: "
+          f"{losses['int8'][0] == losses['f32'][0]})")
+    if losses["int8"][0] != losses["f32"][0]:
+        raise AssertionError("step 0's loss differs between int8 and f32 moments")
+    if not max(rel) < LOSS_REL_TOL:
+        raise AssertionError(f"int8 moments part from f32 moments: rel {rel}")
+    return launches["int8"]
+
+
+def profile_train(torch, tr):
+    """Where a train step's time goes: one more step under
+    ``torch.profiler``; host wall, device busy, the largest device items,
+    and the share of the int8 moment kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run_steps(1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in events if e.device_type != DeviceType.CPU]
+    busy = sum(r[0] for r in rows)
+    quant = sum(r[0] for r in rows if "quantize_kernel" in r[2])
+    share = (f"{busy:.3f} ms, idle {100 * (1 - busy / wall):.1f}%; quantize + dequantize "
+             f"kernels {quant:.3f} ms ({100 * quant / busy:.2f}% of device time)"
+             if busy > 0 else "not measured (the profiler recorded no device time)")
+    print(f"[profile] train step {tr.history[-1]['step']}: host wall {wall:.1f} ms, "
+          f"device busy {share}")
+    for ms, n, key in sorted((r for r in rows if r[0] > 0), reverse=True)[:12]:
+        print(f"[profile]   device {ms:9.3f} ms  {n:6d}x  {key[:90]}")
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key) for e in events
+                   if e.device_type == DeviceType.CPU), reverse=True)[:10]
+    for ms, n, key in host:
+        print(f"[profile]   host   {ms:9.3f} ms  {n:6d}x  {key[:90]}")
+    print(f"[profile]   host   {sum(e.count for e in events if e.device_type == DeviceType.CPU)} "
+          f"host ops in all, {sum(r[1] for r in rows)} device items")
+
+
+def phase_timer():
+    """``lap(name)`` prints the seconds since the last lap (the first
+    since the script started) and since the script started."""
+    last = [T_START]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - last[0]:.1f} s (script so far {now - T_START:.1f} s)")
+        last[0] = now
+    return lap
+
+
 def main() -> int:
     try:
         import torch
@@ -541,6 +748,7 @@ def main() -> int:
                     "from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
+    lap = phase_timer()
 
     # 1. device. TF32 off: the plain versions' f32 products stay exact.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -568,15 +776,25 @@ def main() -> int:
               f"spill stores up to {max(spills, default=0)} bytes (ptxas -v)")
 
     # 3. kernels
+    lap("device and build")
     rows = phase_kernels(torch, dev)
+    lap("kernels")
 
     # 4. serve: internlm2 (K1, K2), then mamba2 (K3) once internlm2's
     #    engine is freed
     launches = phase_serve(torch, dev, "internlm2-1.8b",
                            ("flash_attention", "decode_attention"))
+    lap("serve internlm2-1.8b")
     gc.collect()
     torch.cuda.empty_cache()
     launches_ssm = phase_serve(torch, dev, "mamba2-2.7b", ("ssd_scan",))
+    lap("serve mamba2-2.7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. train: internlm2 with int8 AdamW moments (K4a, K4b), then f32
+    launches_train = phase_train(torch, dev)
+    lap("train internlm2-1.8b")
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -591,6 +809,14 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:28",
              launches=launches_ssm["ssd_scan"], **rows["ssd_scan"]),
+        dict(name="quantize", route="cuda",
+             source="src/repro_torch/kernels/csrc/quant.cu",
+             replaces="src/repro/kernels/quant/kernel.py:15",
+             launches=launches_train["quantize"], **rows["quantize"]),
+        dict(name="dequantize", route="cuda",
+             source="src/repro_torch/kernels/csrc/quant.cu",
+             replaces="src/repro/kernels/quant/kernel.py:22",
+             launches=launches_train["dequantize"], **rows["dequantize"]),
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")):

@@ -3,8 +3,9 @@
 The port keeps its own copy so that it never imports the JAX package.
 Every architecture the port runs gets one module in this package
 exporting ``CONFIG: ModelConfig``; ``repro_torch.configs.registry``
-resolves ``--arch``. Mesh and run configs stay in the JAX package until
-a slice of the port needs them.
+resolves ``--arch``. ``RunConfig`` is copied for the training slice;
+mesh configs stay in the JAX package until a slice of the port needs
+them.
 """
 from __future__ import annotations
 
@@ -209,6 +210,31 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Trainer/serving hyper-parameters independent of architecture."""
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatch: int = 0              # 0 => no microbatching
+    remat_policy: str = "minimal"    # none | minimal | full
+    # --- paper-derived knobs (the planner sets these) ---
+    grad_bucket_mb: int = 64         # doorbell-batching analogue
+    pod_sync: str = "auto"           # auto (XLA SPMD) | compressed (int8 ring)
+    moments_int8: bool = False       # blockwise-int8 AdamW moments
+    collective_chunk_mb: int = 0     # 0 => unchunked (Advice #2/#3 analogue)
+    ckpt_every: int = 0              # steps between checkpoints (0 = off)
+    ckpt_dir: str = ""
+    ckpt_replicas: int = 0           # chain-replication targets (LineFS)
+    ckpt_compress: bool = True
+    seed: int = 0
+
 
 #: archs allowed to run long_500k (sub-quadratic sequence mixing)
 SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")

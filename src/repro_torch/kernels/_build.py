@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: argtypes of each library's C entry points
 SIGNATURES = {
     "flash_attention": {
@@ -45,6 +46,12 @@ SIGNATURES = {
         # x, dt, A, Bm, C, y, h, x_dtype, B, S, H, P, N, stream
         "ssd_scan_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _P),
+    },
+    "quant": {
+        # x, q, scale, x_dtype, n, nblk, stream
+        "quant_quantize": (_P, _P, _P, _I, _L, _L, _P),
+        # q, scale, out, out_dtype, n, stream
+        "quant_dequantize": (_P, _P, _P, _I, _L, _P),
     },
 }
 

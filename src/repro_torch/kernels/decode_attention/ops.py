@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.decode_attention.ref import decode_attention
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -79,6 +79,7 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
         return decode_attention(q, k_cache, v_cache, cache_len,
                                 window=window, softcap=softcap)
     _check(q, k_cache, v_cache, window, softcap)
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     b, _, hq, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     clen = _row_lengths(cache_len, b, q.device)

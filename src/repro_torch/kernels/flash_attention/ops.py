@@ -11,7 +11,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,6 +56,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap).to(q.dtype)
     _check(q, k, v, window, softcap)
+    refuse_grad("flash_attention", q, k, v)
     b, s, hq, d = q.shape
     out = torch.empty_like(q)
     if out.numel() == 0:

@@ -12,7 +12,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -64,6 +64,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.device.type == "cpu":
         return ssd_chunked_ref(x.float(), dt, A, Bm, C, chunk=chunk)
     _check(x, dt, A, Bm, C)
+    refuse_grad("ssd_scan", x, dt, A, Bm, C)
     b, s, h, p = x.shape
     n = Bm.shape[2]
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)

@@ -1,12 +1,16 @@
 """Attention, the counterpart of ``repro/models/attention.py``.
 
-- ``attention_ref``    : quadratic reference (the plain version of K1).
-- ``decode_attention`` : one-token attention against a KV cache, with a
+- ``attention_ref``     : quadratic reference (the plain version of K1).
+- ``attention_blocked`` : flash-style online softmax over q/kv blocks in
+  plain tensor ops, skipping fully-masked kv blocks; the attention of
+  training from 2048 tokens, as in the JAX package.
+- ``decode_attention``  : one-token attention against a KV cache, with a
   scalar or per-row ``(B,)`` cache length (the plain version of K2).
 - ``attention`` / ``decode`` : dispatch between those and the CUDA
   kernels. ``impl="auto"`` takes the kernel for CUDA tensors at every
   length and the plain version for CPU tensors; ``"ref"`` always takes
-  the plain version.
+  the plain version; ``"blocked"`` the blocked scan.
+- ``train_impl`` : the ``impl`` of a training forward, JAX's own rule.
 
 Shapes: q (B, Sq, Hq, hd); k/v (B, Skv, Hkv, hd); GQA via Hq % Hkv == 0.
 """
@@ -20,9 +24,89 @@ from repro_torch.kernels import use_kernel
 from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
+from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref, softcap_
 
-__all__ = ["NEG_INF", "attention_ref", "decode_attention", "attention", "decode"]
+__all__ = ["NEG_INF", "attention_ref", "attention_blocked", "decode_attention",
+           "attention", "decode", "train_impl"]
+
+#: JAX's ``attention(impl="auto")`` takes the blocked scan from this length
+BLOCKED_FROM = 2048
+
+
+def attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      softcap: Optional[float] = None, q_block: int = 512,
+                      kv_block: int = 512) -> torch.Tensor:
+    """Flash-style attention with online softmax, blocked over q and kv,
+    in f32 (``repro/models/attention.py:68-157``); returns v.dtype.
+
+    Fully-masked kv blocks (above the causal diagonal, left of the
+    window) are skipped, as JAX's ``lax.cond`` skips them. A length that
+    is not a multiple of both blocks falls back to ``attention_ref``, as
+    there. Differentiable: the training forward's attention from 2048
+    tokens."""
+    b, s, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if s != skv:
+        raise ValueError("attention_blocked is for self-attention (train/prefill)")
+    if s % q_block or s % kv_block:
+        return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    groups = hq // hkv
+    scale = 1.0 / (d ** 0.5)
+    qt = q.transpose(1, 2).float() * scale               # (B, Hq, S, d)
+    kt = k.transpose(1, 2).float()                       # (B, Hkv, S, d)
+    vt = v.transpose(1, 2).float()
+    if groups > 1:                                       # (B,Hkv,S,d)->(B,Hq,S,d)
+        kt, vt = (x[:, :, None].expand(b, hkv, groups, s, d).reshape(b, hq, s, d)
+                  for x in (kt, vt))
+    neg_inf = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
+    pos = torch.arange(max(q_block, kv_block), device=q.device)
+
+    blocks = []
+    for q0 in range(0, s, q_block):
+        qblk = qt[:, :, q0:q0 + q_block]
+        m = torch.full((b, hq, q_block), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, hq, q_block), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, hq, q_block, d), dtype=torch.float32, device=q.device)
+        for k0 in range(0, s, kv_block):
+            if causal and k0 > q0 + q_block - 1:        # above the diagonal
+                continue
+            if window is not None and k0 + kv_block - 1 <= q0 - window:
+                continue                                 # left of the window
+            sc = softcap_(qblk @ kt[:, :, k0:k0 + kv_block].transpose(-1, -2), softcap)
+            # the mask where a block meets the diagonal or the window's
+            # edge; elsewhere every entry is kept and JAX's where(mask) and
+            # mask-multiply leave the block as it is
+            msk = None
+            if (causal and k0 + kv_block - 1 > q0) or \
+                    (window is not None and k0 <= q0 + q_block - 1 - window):
+                qpos = (q0 + pos[:q_block])[:, None]
+                kpos = (k0 + pos[:kv_block])[None, :]
+                msk = torch.ones((q_block, kv_block), dtype=torch.bool, device=q.device)
+                if causal:
+                    msk &= kpos <= qpos
+                if window is not None:
+                    msk &= kpos > qpos - window
+                sc = torch.where(msk, sc, neg_inf)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            if msk is not None:                          # rows with no valid
+                p = p * msk                              # column contribute 0
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + p @ vt[:, :, k0:k0 + kv_block]
+            m = m_new
+        blocks.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(v.dtype))
+    return torch.cat(blocks, dim=2).transpose(1, 2)     # (B, S, Hq, d)
+
+
+def train_impl(seq_len: int) -> str:
+    """The attention a training forward takes: JAX's ``attention(
+    impl="auto")`` rule (``repro/models/attention.py:262``), the plain
+    quadratic reference below 2048 tokens and the blocked scan from 2048.
+    It never takes the CUDA kernels: they are forward-only, as their
+    Pallas originals are, and JAX's ``auto`` never takes those either."""
+    return "blocked" if seq_len >= BLOCKED_FROM else "ref"
 
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
@@ -31,6 +115,9 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     if use_kernel(impl, q):
         return flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap)
+    if impl == "blocked":
+        return attention_blocked(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
     return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
 
 

@@ -1,8 +1,10 @@
 """The decoder LM, the counterpart of ``repro/models/model.py`` for
 attention layers with a dense MLP and Mamba2 SSM layers.
 
-``forward`` covers train and prefill without a cache; ``prefill`` builds
-the cache; ``decode_step`` advances one token against it. Layers run as a
+``forward`` covers train and prefill without a cache, with the JAX remat
+policies (``torch.utils.checkpoint`` per period group); ``cross_entropy``
+is the chunked training loss; ``prefill`` builds the cache;
+``decode_step`` advances one token against it. Layers run as a
 Python loop over period groups (the JAX package's ``lax.scan``). The
 dtype flow is the JAX one: the residual stream in ``cfg.dtype`` (bf16),
 every product in bf16, norms, softmax and the SSD scan in f32.
@@ -19,14 +21,18 @@ the new SSM states into the cache it is given, in place, and returns
 that same cache: JAX's ``.at[].set`` builds a new array, which on the
 card would copy the whole cache every step.
 
-Codebooks, frontends and MoE layers raise (later slices).
+Codebooks (but in ``cross_entropy``), frontends and MoE layers raise
+(later slices).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -259,24 +265,116 @@ def apply_layer(cfg: ModelConfig, slot: int, p: dict, x: torch.Tensor, *,
 # forward (train / prefill without a cache)
 # ----------------------------------------------------------------------
 
+REMATS = ("none", "minimal", "full")
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``remat="minimal"``: keep the outputs of plain matrix products
+    (``aten.mm``: the projections and the MLP, none with a batch dim) and
+    recompute everything else, the attention's batched products
+    included: JAX's ``dots_with_no_batch_dims_saveable``
+    (``model.py:198-202``)."""
+    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def forward(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
-            impl: str = "auto") -> ForwardResult:
+            impl: str = "auto", remat: str = "minimal") -> ForwardResult:
+    """Hidden states (B,S,D) after the final norm. ``remat`` applies when
+    autograd records: each period group under ``torch.utils.checkpoint``,
+    saving nothing inside (``"full"``), the plain matrix products'
+    outputs (``"minimal"``) or everything (``"none"``). It changes memory,
+    never the numbers."""
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    for slot, _, p in _layers(cfg, params):
-        x = apply_layer(cfg, slot, p, x, positions=positions, impl=impl)
+    period = layer_period(cfg)
+
+    def group_body(x, g):
+        for slot in range(period):
+            x = apply_layer(cfg, slot, _group(params["layers"][slot], g), x,
+                            positions=positions, impl=impl)
+        return x
+
+    # no random ops in the model: the RNG state need not be replayed
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if remat == "minimal":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_matmuls)
+    for g in range(num_groups(cfg)):
+        if remat == "none" or not torch.is_grad_enabled():
+            x = group_body(x, g)
+        else:
+            x = checkpoint(group_body, x, g, **kw)
     x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return ForwardResult(hidden=x, aux_loss=torch.zeros((), device=x.device))
 
 
+def _head_table(cfg: ModelConfig, params: PyTree) -> torch.Tensor:
+    return (params["embed"]["table"] if cfg.tie_embeddings
+            else params["lm_head"]["w"])
+
+
 def logits_for(cfg: ModelConfig, params: PyTree, hidden: torch.Tensor) -> torch.Tensor:
     """Full f32 logits (B,S,V) from bf16 products."""
-    table = (params["embed"]["table"] if cfg.tie_embeddings
-             else params["lm_head"]["w"]).to(torch.bfloat16)
+    table = _head_table(cfg, params).to(torch.bfloat16)
     logits = (hidden.to(torch.bfloat16) @ table.T).float()
     if cfg.final_logit_softcap:
         logits = cfg.final_logit_softcap * torch.tanh(logits / cfg.final_logit_softcap)
     return logits
+
+
+def _ce_chunk(cfg: ModelConfig, h: torch.Tensor, lab: torch.Tensor,
+              msk: torch.Tensor, table: torch.Tensor):
+    """One chunk of ``cross_entropy``: (sum of masked CE, sum of masked
+    lse²). The head product is bf16, the logsumexp f32."""
+    h = h.to(torch.bfloat16)
+    if cfg.num_codebooks > 1:
+        logits = torch.einsum("bsd,cvd->bscv", h, table).float()
+    else:
+        logits = (h @ table.T).float()
+    if cfg.final_logit_softcap:
+        logits = cfg.final_logit_softcap * torch.tanh(logits / cfg.final_logit_softcap)
+    lse = torch.logsumexp(logits, dim=-1)                # (B,C) or (B,C,cb)
+    ll = torch.gather(logits, -1, lab.long()[..., None])[..., 0]
+    ce = lse - ll
+    if cfg.num_codebooks > 1:
+        ce, lse = ce.mean(-1), lse.mean(-1)
+    return (ce * msk).sum(), ((lse ** 2) * msk).sum()
+
+
+def cross_entropy(cfg: ModelConfig, params: PyTree, hidden: torch.Tensor,
+                  labels: torch.Tensor, loss_mask: torch.Tensor, *,
+                  chunk: int = 512, z_loss: float = 1e-4) -> torch.Tensor:
+    """Chunked CE with z-loss (``model.py:236-283``): mean over the mask
+    of ``lse - logit[label]`` plus ``z_loss`` times the mean of lse².
+
+    hidden (B,S,D); labels (B,S) int [(B,S,C) for codebooks, averaged
+    over them]; loss_mask (B,S) f32. The chunk halves while it does not
+    divide S. Each chunk runs under ``torch.utils.checkpoint`` when
+    autograd records, so its (B, chunk, V) logits are recomputed in the
+    backward and (B, S, V) never exists at once."""
+    b, s, d = hidden.shape
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk //= 2
+    table = _head_table(cfg, params).to(torch.bfloat16)
+    zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    tot, cnt, zacc = zero, zero, zero
+    body = functools.partial(_ce_chunk, cfg)
+    for c0 in range(0, s, chunk):
+        args = (hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+                loss_mask[:, c0:c0 + chunk], table)
+        if torch.is_grad_enabled():
+            ce, zz = checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            ce, zz = body(*args)
+        tot = tot + ce
+        zacc = zacc + zz
+        cnt = cnt + args[2].sum()
+    cnt = torch.clamp(cnt, min=1.0)
+    return tot / cnt + z_loss * zacc / cnt
 
 
 # ----------------------------------------------------------------------

@@ -4,7 +4,8 @@
   the JAX package ``repro``, and importing the port loads neither;
 - its entry points default to ``cuda`` and raise without a card;
 - its kernel wrappers take the plain version only for CPU tensors and
-  count no launch for them;
+  count no launch for them, and refuse inputs that want a gradient
+  (``refuse_grad``: the kernels are forward-only);
 - on a card (``-m gpu``), each kernel agrees with its plain version.
 """
 import ast
@@ -18,10 +19,13 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.quant.ops import dequantize, quantize
+from repro_torch.kernels.quant.ref import dequantize_flat_ref, quantize_flat_ref
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_sequential_ref
 from repro_torch.models import model as TM
@@ -53,7 +57,7 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_importing_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.serve.engine, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.launch.train, repro_torch.bridge\n"
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -64,6 +68,9 @@ def test_importing_port_loads_neither_jax_nor_repro():
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.launch.train import main as train_main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main(["--arch", "internlm2-1.8b", "--reduced", "--steps", "1"])
     for arch in ("internlm2-1.8b", "mamba2-2.7b"):
         cfg = get_config(arch).reduced()
         gen = torch.Generator()
@@ -96,6 +103,24 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
     torch.testing.assert_close((y, h), (y_ref, h_ref), rtol=0, atol=0)
     assert (flash_attention.launches, decode_attention_kernel.launches) == before
     assert ssd_scan.launches == n0
+    n0 = quantize.launches, dequantize.launches
+    qt, s = quantize(q, 32)
+    torch.testing.assert_close((qt, s), quantize_flat_ref(q, 32), rtol=0, atol=0)
+    torch.testing.assert_close(dequantize(qt, s, q.shape),
+                               dequantize_flat_ref(qt, s, q.shape), rtol=0, atol=0)
+    assert (quantize.launches, dequantize.launches) == n0
+
+
+def test_refuse_grad_helper():
+    """``refuse_grad`` raises only when autograd would want a gradient
+    through a kernel: grad mode on and an input that requires grad."""
+    a, b = torch.zeros(3), torch.zeros(3, requires_grad=True)
+    refuse_grad("k", a, a)
+    with pytest.raises(RuntimeError, match="k: the CUDA kernel has no backward"):
+        refuse_grad("k", a, b)
+    with torch.no_grad():
+        refuse_grad("k", a, b)
+    refuse_grad("k", b.detach())
 
 
 def test_unsupported_configs_raise():
@@ -155,3 +180,24 @@ def test_kernels_match_plain_versions_on_card():
         y_ref, h_ref = ssd_sequential_ref(x.float(), dt, a, bm, cm)
         assert (y - y_ref).abs().max().item() < 5e-3
         assert (hf - h_ref).abs().max().item() < 5e-3
+    # forward-only kernels refuse inputs that want a gradient
+    qg = q.float().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(qg.expand(3, 256, 8, 128).contiguous(), kc, vc)
+    with pytest.raises(RuntimeError, match="no backward"):
+        decode_attention_kernel(qg, kc, vc, lens)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_scan(x.float().requires_grad_(), dt, a, bm.float(), cm.float(), chunk=chunk)
+    with torch.no_grad():
+        decode_attention_kernel(qg, kc, vc, lens)
+    # int8 quantize / dequantize: bit-equal to the plain versions, ragged n
+    for n, dtype in ((1, torch.float32), (257, torch.bfloat16), (100_003, torch.float32)):
+        x = torch.randn((n,), generator=gen, device=dev).to(dtype)
+        n0 = quantize.launches, dequantize.launches
+        qt, s = quantize(x)
+        qr, sr = quantize_flat_ref(x)
+        assert torch.equal(qt, qr) and torch.equal(s, sr)
+        for out in (torch.float32, torch.bfloat16):
+            assert torch.equal(dequantize(qt, s, (n,), out),
+                               dequantize_flat_ref(qr, sr, (n,), out))
+        assert (quantize.launches, dequantize.launches) == (n0[0] + 1, n0[1] + 2)

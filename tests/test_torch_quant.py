@@ -1,0 +1,138 @@
+"""The port's int8 blockwise quantization (the plain versions of K4a and
+K4b, on the CPU) against the JAX package: ``repro.core.compression``
+and the Pallas kernels in interpret mode. Inputs are made with numpy
+from a seed and handed to both frameworks.
+
+Tolerances: q, the scales, the dequantized values and the error-feedback
+residual are bit-equal (0) with ``repro.core.compression`` run eagerly:
+every step is one IEEE-rounded operation in both frameworks (a true
+division, round half to even, an exact max). The Pallas kernel runs
+jitted, and XLA turns its division by the constant 127 into a multiply
+by the reciprocal, so its scales may sit one f32 ulp off; they are held
+to the JAX package's own rel 1e-6 (``tests/test_kernels.py:86-87``),
+its q and dequantized values to 0 in these cases."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings, strategies as st
+
+from repro.core import compression as jc
+from repro.kernels.quant.ops import dequantize_int8 as jax_dequant_pallas
+from repro.kernels.quant.ops import quantize_int8 as jax_quant_pallas
+from repro_torch.core import compression as tc
+from repro_torch.kernels.quant.ops import dequantize, quantize
+
+# tests/test_kernels.py::test_quant_kernel_vs_ref's (n, block) cases
+QUANT_CASES = [(1000, 128), (4096, 256), (17, 16)]
+
+
+def _x(n, scale, seed=0):
+    return (np.random.default_rng(seed).standard_normal(n) * scale).astype(np.float32)
+
+
+def _check_equal(what, j, t):
+    j, t = np.asarray(j), t.numpy()
+    bad = int((j != t).sum()) if j.shape == t.shape else -1
+    print(f"[parity] {what}: {bad} of {j.size} differ (tol 0)")
+    assert j.shape == t.shape and j.dtype == t.dtype and bad == 0
+
+
+@pytest.mark.parametrize("n,block", QUANT_CASES)
+def test_quantize_vs_compression_and_pallas(n, block):
+    x = _x(n, 3.0)
+    qt = tc.quantize_int8_blockwise(torch.from_numpy(x), block)
+    ref = jc.quantize_int8_blockwise(jnp.asarray(x), block)
+    _check_equal(f"q vs compression n={n} block={block}", ref.q, qt.q)
+    _check_equal(f"scale vs compression n={n} block={block}", ref.scale, qt.scale)
+    qp, sp = jax_quant_pallas(jnp.asarray(x), block=block)          # interpret mode
+    _check_equal(f"q vs Pallas n={n} block={block}", qp, qt.q)
+    sp = np.asarray(sp[:, 0])
+    rel = float(np.abs(sp - qt.scale.numpy()).max() / np.abs(sp).max())
+    print(f"[parity] scale vs Pallas n={n} block={block}: max rel {rel:.3g} (tol 1e-6), "
+          f"{int((sp != qt.scale.numpy()).sum())} of {sp.size} one ulp off")
+    assert rel < 1e-6
+    back = tc.dequantize_int8_blockwise(qt, (n,))
+    _check_equal(f"dequantized vs compression n={n} block={block}",
+                 jc.dequantize_int8_blockwise(ref, (n,)), back)
+    _check_equal(f"dequantized vs Pallas n={n} block={block}",
+                 jax_dequant_pallas(qp, jnp.asarray(qt.scale.numpy())[:, None], (n,)), back)
+
+
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 1e-20, 1e6])
+@pytest.mark.parametrize("n", [1, 255, 257, 77_777])
+def test_quantize_scales_and_ragged_sizes(n, scale):
+    """Ragged sizes (the tail read as zeros) at scales down to the
+    denormal range and up to 1e6, f32 and bf16 input, f32 and bf16
+    output."""
+    x = _x(n, scale, seed=n)
+    for dtype, jdtype in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        xt = torch.from_numpy(x).to(dtype)
+        xj = jnp.asarray(x).astype(jdtype)
+        qt = tc.quantize_int8_blockwise(xt)
+        ref = jc.quantize_int8_blockwise(xj)
+        _check_equal(f"q n={n} scale={scale} {dtype}", ref.q, qt.q)
+        _check_equal(f"scale n={n} scale={scale} {dtype}", ref.scale, qt.scale)
+        for out, jout in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+            back = tc.dequantize_int8_blockwise(qt, (n,), out)
+            jback = jc.dequantize_int8_blockwise(ref, (n,), jout)
+            assert back.dtype == out
+            _check_equal(f"dequantized n={n} scale={scale} {dtype}->{out}",
+                         np.asarray(jback.astype(jnp.float32)), back.float())
+
+
+def test_quantize_keeps_any_shape_and_empty():
+    x = torch.from_numpy(_x(2 * 3 * 50, 1.0)).view(2, 3, 50)
+    qt = tc.quantize_int8_blockwise(x, 64)
+    assert qt.q.shape == (5, 64) and qt.scale.shape == (5,)
+    assert tc.quantized_nbytes(qt) == 5 * 64 + 5 * 4
+    back = tc.dequantize_int8_blockwise(qt, x.shape, torch.bfloat16)
+    assert back.shape == x.shape and back.dtype == torch.bfloat16
+    q, s = quantize(torch.zeros(0), 256)
+    assert q.shape == (0, 256) and s.shape == (0,)
+    assert dequantize(q, s, (0,)).shape == (0,)
+    with pytest.raises(ValueError, match="more than"):
+        dequantize(qt.q, qt.scale, (1000,))
+    with pytest.raises(ValueError, match="positive"):
+        quantize(x, 0)
+
+
+@settings(max_examples=25, deadline=None)
+@given(st.integers(1, 2000), st.integers(3, 9), st.floats(0.1, 100.0))
+def test_quant_roundtrip_error_bound(n, logblock, scale):
+    """|deq(q(x)) - x| <= half a quantization step, per block
+    (tests/test_property.py:23, on the port)."""
+    block = 2 ** logblock
+    x = np.random.RandomState(n).randn(n).astype(np.float32) * scale
+    qt = tc.quantize_int8_blockwise(torch.from_numpy(x), block)
+    back = tc.dequantize_int8_blockwise(qt, (n,)).numpy()
+    step = np.repeat(qt.scale.numpy(), block)[:n]
+    assert (np.abs(back - x) <= step * 0.5 + 1e-6).all()
+
+
+@pytest.mark.parametrize("block", [16, 256])
+def test_compress_with_feedback_residual_parity(block):
+    """Four rounds of error-feedback compression: q, scales and the
+    residual carried bit-equal with the JAX package's; the sum of what
+    was sent plus the final residual is the sum of the true grads."""
+    rng = np.random.default_rng(block)
+    n = 1000
+    jef = jc.ErrorFeedback.init((n,))
+    tef = tc.ErrorFeedback.init((n,), device="cpu")
+    sent, true = np.zeros(n, np.float32), np.zeros(n, np.float32)
+    for i in range(4):
+        g = (rng.standard_normal(n) * 10.0 ** (i - 2)).astype(np.float32)
+        jq, jef = jc.compress_with_feedback(jnp.asarray(g), jef, block=block)
+        tq, tef = tc.compress_with_feedback(torch.from_numpy(g), tef, block=block)
+        _check_equal(f"feedback q round {i} block={block}", jq.q, tq.q)
+        _check_equal(f"feedback scale round {i} block={block}", jq.scale, tq.scale)
+        _check_equal(f"feedback residual round {i} block={block}", jef.residual, tef.residual)
+        sent += tc.dequantize_int8_blockwise(tq, (n,)).numpy()
+        true += g
+    assert np.allclose(sent + tef.residual.numpy(), true, atol=1e-4)
+
+
+def test_error_feedback_init_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tc.ErrorFeedback.init((4,))
