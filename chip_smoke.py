@@ -14,12 +14,15 @@ nothing of JAX. Phases, each fatal on failure:
 3. kernels - each kernel against its plain version: the JAX package's
              kernel test cases, attention in f32 (max abs 2e-5) and bf16
              (2e-2, and within half a bf16 step of the f32 result plus
-             2^-16 max|v|), the SSD scan in f32 against the sequential
-             recurrence (5e-3 on y and on the state, also at ragged
-             lengths), int8 quantize / dequantize bit-equal (q, scales
-             and the dequantized values, f32 and bf16 in and out, n = 1,
-             255, 257, 1,000,003 and the path's 805,306,368), and the
-             main paths' shapes; kernel, plain version and the library
+             2^-16 max|v|; K1's bf16 path also at ragged lengths with
+             B = 2, S = 37, 100, 300, 511, hd 128 and 64), the SSD scan
+             in f32 against the sequential recurrence (5e-3 on y and on
+             the state, also at ragged lengths), int8 quantize /
+             dequantize bit-equal (q, scales and the dequantized values,
+             f32 and bf16 in and out, n = 1, 255, 257, 1,000,003 and the
+             path's 805,306,368), and the main paths' shapes (K1 at the
+             engine's bucket lengths 8 to 1024, and its wrapper's host
+             time per call); kernel, plain version and the library
              yardstick where one PyTorch call computes the same function
              (``scaled_dot_product_attention``, ``torch.mul``, which the
              port never calls) timed with CUDA events;
@@ -49,7 +52,7 @@ nothing of JAX. Phases, each fatal on failure:
              ``torch.profiler`` breaks down a fourth int8 step.
 
 The line before the last is a JSON object with each kernel's launches,
-error, times and bound; the last line is
+error, times and bound (K1 once per timed length); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -76,6 +79,12 @@ F32_FLOPS = 67e12               # f32 outside the tensor cores
 FA_CASES = [(2, 256, 4, 2, 64, None, None), (1, 512, 8, 8, 128, 128, 50.0),
             (2, 512, 4, 1, 64, None, 30.0), (1, 256, 2, 2, 32, 100, None),
             (1, 256, 4, 2, 64, None, None)]
+# K1's bf16 path at ragged lengths with B = 2: a partial last tile, and a
+# tensor map that must not read across the batch boundary
+FA_RAGGED = [(2, s, 4, 2, d, None, None) for s in (37, 100, 300, 511) for d in (128, 64)]
+# K1 timed at internlm2-1.8b's prefill shape (B=1, 16 q / 8 kv heads, hd
+# 128, bf16) at the engine's buckets and its max_len of 1024
+FA_PATH_LENS = (8, 32, 64, 256, 512, 1024)
 DEC_CASES = [(2, 512, 4, 2, 64, None, None, 300), (1, 256, 8, 8, 128, 128, 50.0, 256),
              (2, 512, 4, 1, 64, None, None, 1), (1, 1024, 16, 2, 64, None, 30.0, 777)]
 # tests/test_kernels.py: SSD_CASES (B, S, H, P, N, chunk, head tile)
@@ -192,6 +201,11 @@ def phase_kernels(torch, dev):
                   attention_ref(q.float(), k.float(), v.float(), window=win, softcap=cap),
                   v, tol, f"{dtype} B={b} S={s} Hq={hq} Hkv={hkv} hd={d} window={win} "
                   f"softcap={cap}")
+        for b, s, hq, hkv, d, win, cap in FA_RAGGED if dtype == torch.bfloat16 else ():
+            q, k, v = randn((b, s, hq, d), dtype), randn((b, s, hkv, d), dtype), randn((b, s, hkv, d), dtype)
+            check("flash_attention", flash_attention(q, k, v), attention_ref(q, k, v),
+                  attention_ref(q.float(), k.float(), v.float()), v, tol,
+                  f"ragged {dtype} B={b} S={s} Hq={hq} Hkv={hkv} hd={d}")
         for b, s, hq, hkv, d, win, cap, clen in DEC_CASES:
             q, kc, vc = randn((b, 1, hq, d), dtype), randn((b, s, hkv, d), dtype), randn((b, s, hkv, d), dtype)
             check("decode_attention",
@@ -205,7 +219,7 @@ def phase_kernels(torch, dev):
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)   # 256 MB > L2
     rows = {}
     # K1 at the model's prefill shapes: B=1, Hq=16, Hkv=8, hd=128, bf16
-    for s in (64, 512):
+    for s in FA_PATH_LENS:
         q = randn((1, s, 16, 128), torch.bfloat16)
         k, v = randn((1, s, 8, 128), torch.bfloat16), randn((1, s, 8, 128), torch.bfloat16)
         e = check("flash_attention", flash_attention(q, k, v), attention_ref(q, k, v),
@@ -224,6 +238,19 @@ def phase_kernels(torch, dev):
               f"bound {b_ms:.4f} ms ({b_by})")
         rows[("flash_attention", s)] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
                                             bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    # the wrapper's host cost per call (checks, output allocation, three
+    # tensor-map encodes, launch): 1,000 calls at S=64, whose kernels are
+    # shorter than the host's work, so the host sets the pace
+    q, k, v = (randn((1, 64, h, 128), torch.bfloat16) for h in (16, 8, 8))
+    flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        flash_attention(q, k, v)
+    host_us = (time.perf_counter() - t0) * 1e3          # seconds * 1e6 / 1000 calls
+    torch.cuda.synchronize()
+    print(f"[kernels] flash_attention wrapper: {host_us:.2f} us of host time per call "
+          f"(1000 calls at S=64, no sync between)")
     # K2 at the engine's decode shapes: B=4 slots, max_len=1024, f32 cache, bf16 q
     lens = torch.tensor([1, 1024, 300, 77], dtype=torch.int32, device=dev)
     q = randn((4, 1, 16, 128), torch.bfloat16)
@@ -603,13 +630,18 @@ def profile_serve(torch, eng, cfg, rng):
         rows = [(e.self_device_time_total / 1e3 / steps, e.count // steps, e.key)
                 for e in events if e.device_type != DeviceType.CPU]
         busy = sum(r[0] for r in rows)
-        rows = sorted((r for r in rows if r[0] > 0), reverse=True)[:8]
+        all_rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+        rows = all_rows[:8]
         share = (f"{busy:.3f} ms, idle {100 * (1 - busy / wall):.1f}%" if busy > 0
                  else "not measured (the profiler recorded no device time)")
         print(f"[profile] {cfg.name} {label}: host wall {wall:.3f} ms per step, "
               f"device busy {share}")
         for ms, n, key in rows:
             print(f"[profile]   device {ms:8.3f} ms  {n:5d}x  {key[:90]}")
+        ours = [(re.search(r"repro::\(anonymous namespace\)::(\w+)", key), ms, n)
+                for ms, n, key in all_rows]
+        print("[profile]   the port's kernels: " + (", ".join(
+            f"{name.group(1)} {ms:.3f} ms ({n}x)" for name, ms, n in ours if name) or "none"))
         host = sorted(((e.self_cpu_time_total / 1e3 / steps, e.count // steps, e.key)
                        for e in events if e.device_type == DeviceType.CPU), reverse=True)[:8]
         for ms, n, key in host:
@@ -774,6 +806,13 @@ def main() -> int:
         print(f"[build] {name}: {len(regs)} kernel instances, registers "
               f"{min(regs, default=0)}..{max(regs, default=0)} per thread, "
               f"spill stores up to {max(spills, default=0)} bytes (ptxas -v)")
+    # K1's tensor-core kernel per instance: <head dim, softcap>
+    wg = re.findall(r"Compiling entry function '\w*fa_fwd_wgmma_kernelILi(\d+)ELb([01])E[^']*'"
+                    r".*?(\d+) bytes spill stores.*?Used (\d+) registers",
+                    _build.build_log("flash_attention"), re.S)
+    print("[build] flash_attention wgmma kernel: " + ", ".join(
+        f"hd {hd}{' softcap' if cap == '1' else ''}: {r} registers, {sp} bytes spilled"
+        for hd, cap, sp, r in wg))
 
     # 3. kernels
     lap("device and build")
@@ -800,7 +839,10 @@ def main() -> int:
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:28",
-             launches=launches["flash_attention"], **rows[("flash_attention", 512)]),
+             launches=launches["flash_attention"], shape=f"B=1 S={s} Hq=16 Hkv=8 hd=128 bf16",
+             **rows[("flash_attention", s)])
+        for s in FA_PATH_LENS
+    ] + [
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:26",

@@ -157,6 +157,19 @@ def test_kernels_match_plain_versions_on_card():
                 _, e = torch.frexp(torch.maximum(out.float().abs(), r32.abs()))
                 excess = (out.float() - r32).abs() - torch.ldexp(torch.ones_like(r32), e - 9)
                 assert excess.max().item() <= 2.0 ** -16 * v.float().abs().max().item()
+    # the bf16 tensor-core path at ragged lengths with B=2: a partial last
+    # tile, and tensor maps that must not read across the batch boundary
+    for s in (37, 100, 300, 511):
+        for d in (128, 64):
+            q, k, v = (torch.randn((2, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
+                       for h in (4, 2, 2))
+            out = flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            assert (out.float() - attention_ref(q, k, v).float()).abs().max().item() < 2e-2
+            r32 = attention_ref(q.float(), k.float(), v.float())
+            _, e = torch.frexp(torch.maximum(out.float().abs(), r32.abs()))
+            excess = (out.float() - r32).abs() - torch.ldexp(torch.ones_like(r32), e - 9)
+            assert excess.max().item() <= 2.0 ** -16 * v.float().abs().max().item()
     q = torch.randn((3, 1, 8, 128), generator=gen, device=dev).to(torch.bfloat16)
     kc, vc = (torch.randn((3, 256, 2, 128), generator=gen, device=dev) for _ in range(2))
     lens = torch.tensor([1, 256, 0], device=dev)

@@ -112,6 +112,21 @@ def test_flash_ragged_length_vs_attention_ref(s, win):
     _check(f"flash_attention ragged S={s} window={win} vs attention_ref", _err(ref, out), 2e-5)
 
 
+@pytest.mark.parametrize("s,d", [(s, d) for s in (37, 100, 300, 511) for d in (128, 64)])
+def test_flash_ragged_batch_bf16_vs_attention_ref(s, d):
+    """The card's ragged cases for the bf16 tensor-core path (B=2, a
+    partial last tile, two q heads per kv head), here on the plain path."""
+    rng = np.random.default_rng(4)
+    qj, qt = _pair(_normal(rng, (2, s, 4, d)), True)
+    kj, kt = _pair(_normal(rng, (2, s, 2, d)), True)
+    vj, vt = _pair(_normal(rng, (2, s, 2, d)), True)
+    ref = jax_attention_ref(qj, kj, vj, causal=True)
+    out = flash_attention(qt, kt, vt, causal=True)
+    assert out.dtype == torch.bfloat16 and out.shape == qt.shape
+    _check(f"flash_attention ragged B=2 S={s} hd={d} bf16 vs attention_ref", _err(ref, out),
+           2e-2)
+
+
 def test_dispatch_takes_plain_versions_on_cpu():
     rng = np.random.default_rng(4)
     q = torch.from_numpy(_normal(rng, (1, 16, 4, 16)))
