@@ -17,12 +17,19 @@ nothing of JAX. Phases, each fatal on failure:
              2^-16 max|v|; K1's bf16 path also at ragged lengths with
              B = 2, S = 37, 100, 300, 511, hd 128 and 64), the SSD scan
              in f32 against the sequential recurrence (5e-3 on y and on
-             the state, also at ragged lengths), int8 quantize /
+             the state, also at ragged lengths; the CUDA-core kernel),
+             its bf16 tensor-core path at B = 2 (S = 8, 64, 65, 300, 512
+             at mamba2's head shape, and P = 80, 32) within 5e-3 and 1e-4
+             of the largest magnitude of the f32 recurrence, int8 quantize /
              dequantize bit-equal (q, scales and the dequantized values,
              f32 and bf16 in and out, n = 1, 255, 257, 1,000,003 and the
              path's 805,306,368), and the main paths' shapes (K1 at the
              engine's bucket lengths 8 to 1024, and its wrapper's host
-             time per call); kernel, plain version and the library
+             time per call; K3 at the serve pass's lengths 8 to 1024,
+             beside the CUDA-core kernel and the wrapper it had on the
+             same inputs, with the card also spun before each start
+             event (``device_ms``), the host time per call and each
+             launch's device time); kernel, plain version and the library
              yardstick where one PyTorch call computes the same function
              (``scaled_dot_product_attention``, ``torch.mul``, which the
              port never calls) timed with CUDA events;
@@ -52,7 +59,7 @@ nothing of JAX. Phases, each fatal on failure:
              ``torch.profiler`` breaks down a fourth int8 step.
 
 The line before the last is a JSON object with each kernel's launches,
-error, times and bound (K1 once per timed length); the last line is
+error, times and bound (K1 and K3 once per timed length); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -92,6 +99,15 @@ SSD_CASES = [(2, 64, 4, 8, 16, 16, 2), (1, 128, 6, 16, 8, 32, 3),
              (2, 256, 8, 16, 32, 64, 8)]
 SSD_RAGGED = [(2, 100, 8, 16, 32, 128), (1, 300, 4, 64, 128, 128)]
 SSD_TOL = 5e-3                  # the scan against the recurrence, f32 math
+# K3's bf16 tensor-core path (B, S, H, P, N) at B=2: one chunk (S = 8,
+# 64), a chunk edge (65), ragged lengths, at mamba2-2.7b's head shape; and
+# head dims that are not a whole 64-wide tile. Held to SSD_TOL and to
+# SSM_LAYER_TOL's 1e-4 of the largest magnitude against the f32 recurrence
+SSD_TC_CASES = [(2, s, 80, 64, 128) for s in (8, 64, 65, 300, 512)] + [
+    (2, 100, 3, 80, 64), (2, 130, 2, 32, 128)]
+# K3 timed at mamba2-2.7b's prefill shape (B=1, H=80, P=64, N=128, bf16
+# x/B/C) at the serve pass's lengths and the engine's max_len of 1024
+SSD_PATH_LENS = (8, 29, 64, 144, 300, 436, 512, 1024)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # bf16 outputs also stay within half a bf16 step of the f32 result plus
 # EXCESS_TOL * max|v|: softmax weights kept to 16 bits (K1's tensor-core
@@ -117,10 +133,13 @@ def fail(msg: str) -> int:
     return 1
 
 
-def cuda_ms(fn, iters: int = 20, flush=None) -> float:
+def cuda_ms(fn, iters: int = 20, flush=None, spin: bool = False) -> float:
     """Median milliseconds of ``fn`` over ``iters`` launches timed with
     CUDA events, after warm-up; ``flush`` (a large tensor) is rewritten
-    before each launch so the inputs come from device memory, not L2."""
+    before each launch so the inputs come from device memory, not L2.
+    With ``spin``, the card also spins about 50 us before each start
+    event, so the stream is busy while the host enqueues ``fn``: the time
+    of its kernels alone, without any gap the host's work leaves."""
     import torch
     for _ in range(3):
         fn()
@@ -130,11 +149,31 @@ def cuda_ms(fn, iters: int = 20, flush=None) -> float:
     for start, end in ev:
         if flush is not None:
             flush.zero_()
+        if spin:
+            torch.cuda._sleep(100_000)                  # clock cycles
         start.record()
         fn()
         end.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in ev]))
+
+
+def host_us_per_call(fns, calls: int = 200, rounds: int = 3):
+    """Host microseconds per call of each of ``fns`` (the time to enqueue
+    ``calls`` calls with no sync between, the card waited for before and
+    after each round), the median of ``rounds`` rounds taken in turns."""
+    import torch
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for fn, t in zip(fns, times):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            t.append((time.perf_counter() - t0) * 1e6 / calls)
+            torch.cuda.synchronize()
+    return [float(np.median(t)) for t in times]
 
 
 def nbytes(*ts) -> int:
@@ -275,15 +314,97 @@ def phase_kernels(torch, dev):
     rows["decode_attention"] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
                                     bound_ms=b_ms, bound_by=b_by, library_ms=lib)
 
-    # K3: SSD_CASES and ragged lengths in f32 against the recurrence
-    def ssd_inputs(b, s, h, p, n, dtype):
+    rows.update(check_ssd(torch, dev, gen, randn, err, flush))
+    rows.update(check_quant(torch, randn, flush))
+    del flush
+    return rows
+
+
+def cuda_core_ssd_scan(x, dt, A, Bm, C):
+    """K3 as the serve path ran it before its tensor-core kernels: the
+    wrapper of that time (the same checks, outputs and one launch) around
+    the CUDA-core kernel, which the tensor-core path replaced on bf16
+    inputs, through its own C entry. Timed beside ``ssd_scan``; it counts
+    no launch of the path."""
+    import torch
+    from repro_torch.kernels import _build, refuse_grad
+    from repro_torch.kernels.ssd_scan.ops import DTYPES, _check
+
+    _check(x, dt, A, Bm, C)
+    refuse_grad("ssd_scan", x, dt, A, Bm, C)
+    b, s, h, p = x.shape
+    n = Bm.shape[2]
+    y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
+    hout = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    if hout.numel() == 0:
+        return y, hout
+    lib = _build.library("ssd_scan")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssd_scan_cuda_core_forward(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                                             Bm.data_ptr(), C.data_ptr(), y.data_ptr(),
+                                             hout.data_ptr(), DTYPES[x.dtype], b, s, h, p, n,
+                                             stream)
+    _build.check(err, "ssd_scan CUDA-core launch")
+    return y, hout
+
+
+def kernel_us(torch, fn, calls: int = 5):
+    """Device microseconds of each of the port's kernels per call of
+    ``fn``, from a ``torch.profiler`` pass over ``calls`` calls (a pass
+    that records no kernel, as one in eight did, is taken again, at most
+    twice)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            name = re.search(r"repro::\(anonymous namespace\)::(\w+)", e.key)
+            if e.device_type != DeviceType.CPU and name:
+                out[name.group(1)] = round(e.self_device_time_total / calls, 2)
+        if out:
+            break
+    return out
+
+
+def check_ssd(torch, dev, gen, randn, err, flush):
+    """K3 against its plain versions: the f32 SSD_CASES and ragged
+    lengths (the CUDA-core kernel), the bf16 tensor-core path's
+    SSD_TC_CASES; at mamba2-2.7b's prefill shape at every length of
+    SSD_PATH_LENS, timed beside ``cuda_core_ssd_scan`` on the same inputs
+    (its "earlier" time: the path's kernel and wrapper before the
+    tensor-core kernels) and the plain chunked scan: device time with and
+    without the spin (``cuda_ms``), host time per call, and each launch's
+    device time. One row per length."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, tensor_core_path
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_sequential_ref
+
+    def inputs(b, s, h, p, n, dtype):
         x = randn((b, s, h, p), dtype)
         dt = F.softplus(randn((b, s, h), torch.float32))
         a = -torch.exp(randn((h,), torch.float32))
         return x, dt, a, randn((b, s, n), dtype), randn((b, s, n), dtype)
 
+    def mamba2_inputs(b, s, h, p, n):
+        """bf16 x/B/C and f32 dt/A distributed as the model makes them"""
+        x = F.silu(randn((b, s, h, p), torch.float32)).to(torch.bfloat16)
+        dt = F.softplus(randn((b, s, h), torch.float32) - 4.0)
+        a = -(1.0 + 15.0 * torch.rand((h,), generator=gen, device=dev))
+        bm, cm = (F.silu(randn((b, s, n), torch.float32)).to(torch.bfloat16) for _ in range(2))
+        return x, dt, a, bm, cm
+
     for b, s, h, p, n, chunk in [c[:6] for c in SSD_CASES] + SSD_RAGGED:
-        x, dt, a, bm, cm = ssd_inputs(b, s, h, p, n, torch.float32)
+        x, dt, a, bm, cm = inputs(b, s, h, p, n, torch.float32)
+        if tensor_core_path(x, bm):
+            raise AssertionError(f"ssd_scan float32 B={b} S={s} takes the tensor-core path")
         y, hf = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
         yr, hr = ssd_sequential_ref(x, dt, a, bm, cm)
         ey, eh = err(y, yr), err(hf, hr)
@@ -291,35 +412,63 @@ def phase_kernels(torch, dev):
               f"max abs err y {ey:.3g}, h {eh:.3g} (tol {SSD_TOL}) against ssd_ref")
         if not max(ey, eh) < SSD_TOL:
             raise AssertionError(f"ssd_scan disagrees at S={s}: y {ey}, h {eh}")
-    # K3 at mamba2-2.7b's prefill: B=1, S=512, H=80, P=64, N=128, chunk 256,
-    # bf16 x/B/C and f32 dt/A distributed as the model makes them
-    b, s, h, p, n, chunk = 1, 512, 80, 64, 128, 256
-    x = F.silu(randn((b, s, h, p), torch.float32)).to(torch.bfloat16)
-    dt = F.softplus(randn((b, s, h), torch.float32) - 4.0)
-    a = -(1.0 + 15.0 * torch.rand((h,), generator=gen, device=dev))
-    bm, cm = (F.silu(randn((b, s, n), torch.float32)).to(torch.bfloat16) for _ in range(2))
-    y, hf = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
-    yr, hr = ssd_chunked_ref(x.float(), dt, a, bm, cm, chunk=chunk)
-    e = max(err(y, yr), err(hf, hr))
-    if not e < SSD_TOL:
-        raise AssertionError(f"ssd_scan at the path shape disagrees: {e}")
-    ms = cuda_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=chunk), flush=flush)
-    plain = cuda_ms(lambda: ssd_chunked_ref(x.float(), dt, a, bm, cm, chunk=chunk), flush=flush)
-    # the least work the function needs: per token and head, the
-    # recurrence's state update and its read into y, one FMA per state
-    # element each (4PN flops); a chunked scan does the same per token and
-    # adds its intra-chunk products, at any chunk length
-    ops = 4.0 * b * s * h * p * n
-    b_ms, b_by = bound(nbytes(x, dt, a, bm, cm, y, hf), ops, F32_FLOPS)
-    print(f"[kernels] ssd_scan path B={b} S={s} H={h} P={p} N={n} chunk={chunk} bf16 x/B/C: "
-          f"err {e:.3g} (max |y| {yr.abs().max().item():.3g}) kernel {ms:.4f} ms, "
-          f"plain {plain:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by}; "
-          f"{ops / 1e9:.3f} GFLOP as 4PN per token and head, "
-          f"{nbytes(x, dt, a, bm, cm, y, hf) / 1e6:.2f} MB)")
-    rows["ssd_scan"] = dict(max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=None)
-    rows.update(check_quant(torch, randn, flush))
-    del flush
+    for b, s, h, p, n in SSD_TC_CASES:
+        x, dt, a, bm, cm = mamba2_inputs(b, s, h, p, n)
+        if not tensor_core_path(x, bm):
+            raise AssertionError(f"ssd_scan B={b} S={s} H={h} P={p} N={n} bf16 does not "
+                                 "take the tensor-core path")
+        y, hf = ssd_scan(x, dt, a, bm, cm, chunk=256)
+        yr, hr = ssd_sequential_ref(x.float(), dt, a, bm.float(), cm.float())
+        errs = [(err(o, r), err(o, r) / r.abs().max().item()) for o, r in ((y, yr), (hf, hr))]
+        print(f"[kernels] ssd_scan tensor cores bf16 B={b} S={s} H={h} P={p} N={n}: max abs "
+              f"err y {errs[0][0]:.3g} (rel {errs[0][1]:.3g}), h {errs[1][0]:.3g} (rel "
+              f"{errs[1][1]:.3g}) against ssd_ref (tol {SSD_TOL} abs, "
+              f"{SSM_LAYER_TOL['y']} rel)")
+        if not all(e < SSD_TOL and r < SSM_LAYER_TOL["y"] for e, r in errs):
+            raise AssertionError(f"ssd_scan's tensor-core path disagrees at B={b} S={s} "
+                                 f"H={h} P={p} N={n}: {errs}")
+
+    rows = {}
+    h, p, n, chunk = 80, 64, 128, 256
+    for s in SSD_PATH_LENS:
+        x, dt, a, bm, cm = args = mamba2_inputs(1, s, h, p, n)
+        y, hf = ssd_scan(*args, chunk=chunk)
+        yr, hr = ssd_chunked_ref(x.float(), dt, a, bm, cm, chunk=chunk)
+        e = max(err(y, yr), err(hf, hr))
+        ye, he = cuda_core_ssd_scan(*args)
+        e_cc = max(err(ye, yr), err(he, hr))
+        if not max(e, e_cc) < SSD_TOL:
+            raise AssertionError(f"ssd_scan at the path shape S={s} disagrees: tensor cores "
+                                 f"{e}, CUDA cores {e_cc}")
+        new, old = (lambda: ssd_scan(*args, chunk=chunk)), (lambda: cuda_core_ssd_scan(*args))
+        ms, earlier = cuda_ms(new, flush=flush), cuda_ms(old, flush=flush)
+        dev_ms = cuda_ms(new, flush=flush, spin=True)
+        earlier_dev = cuda_ms(old, flush=flush, spin=True)
+        plain = cuda_ms(lambda: ssd_chunked_ref(x.float(), dt, a, bm, cm, chunk=chunk),
+                        flush=flush)
+        host, earlier_host = host_us_per_call([new, old])
+        passes = kernel_us(torch, new)
+        # the least work the function needs: per token and head, the
+        # recurrence's state update and its read into y, one FMA per state
+        # element each (4PN flops); a chunked scan does the same per token and
+        # adds its intra-chunk products, at any chunk length
+        ops = 4.0 * s * h * p * n
+        moved = nbytes(x, dt, a, bm, cm, y, hf)
+        b_ms, b_by = bound(moved, ops, BF16_FLOPS)
+        f32_ms = bound(moved, ops, F32_FLOPS)[0]
+        print(f"[kernels] ssd_scan path B=1 S={s} H={h} P={p} N={n} chunk={chunk} bf16 x/B/C: "
+              f"err {e:.3g} (max |y| {yr.abs().max().item():.3g}; CUDA cores {e_cc:.3g}) "
+              f"kernel {ms:.4f} ms ({dev_ms:.4f} spun; launches {passes} us), CUDA-core "
+              f"kernel {earlier:.4f} ms ({earlier_dev:.4f} spun), host {host:.2f} against "
+              f"{earlier_host:.2f} us a call, plain {plain:.4f} ms, library none, bound "
+              f"{b_ms:.4f} ms ({b_by}; {moved / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP as 4PN "
+              f"per token and head; {f32_ms:.4f} ms at the CUDA cores' "
+              f"{F32_FLOPS / 1e12:.0f} TFLOP/s)")
+        rows[("ssd_scan", s)] = dict(max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                     bound_by=b_by, library_ms=None, device_ms=dev_ms,
+                                     launch_us=passes, host_us=host, earlier_ms=earlier,
+                                     earlier_device_ms=earlier_dev, earlier_host_us=earlier_host,
+                                     cuda_core_bound_ms=f32_ms)
     return rows
 
 
@@ -847,10 +996,14 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:26",
              launches=launches["decode_attention"], **rows["decode_attention"]),
+    ] + [
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:28",
-             launches=launches_ssm["ssd_scan"], **rows["ssd_scan"]),
+             launches=launches_ssm["ssd_scan"], shape=f"B=1 S={s} H=80 P=64 N=128 bf16",
+             **rows[("ssd_scan", s)])
+        for s in SSD_PATH_LENS
+    ] + [
         dict(name="quantize", route="cuda",
              source="src/repro_torch/kernels/csrc/quant.cu",
              replaces="src/repro/kernels/quant/kernel.py:15",

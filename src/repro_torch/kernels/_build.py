@@ -30,7 +30,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
-#: argtypes of each library's C entry points
+#: argtypes of each library's C entry points; each returns an int (a CUDA
+#: error code) unless RESTYPES names another type
 SIGNATURES = {
     "flash_attention": {
         # q, k, v, o, dtype, B, S, Hq, Hkv, hd, causal, window, scale, softcap, stream
@@ -43,9 +44,15 @@ SIGNATURES = {
                            _F, _F, _P),
     },
     "ssd_scan": {
+        # x, dt, A, Bm, C, y, h, scratch, scratch_bytes, x_dtype, B, S, H,
+        # P, N, stream
+        "ssd_scan_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                             _I, _I, _P),
         # x, dt, A, Bm, C, y, h, x_dtype, B, S, H, P, N, stream
-        "ssd_scan_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _P),
+        "ssd_scan_cuda_core_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _I, _I, _P),
+        # x_dtype, B, S, H, P, N -> scratch bytes, -1 off the tensor cores
+        "ssd_scan_scratch_bytes": (_I, _I, _I, _I, _I, _I),
     },
     "quant": {
         # x, q, scale, x_dtype, n, nblk, stream
@@ -54,6 +61,7 @@ SIGNATURES = {
         "quant_dequantize": (_P, _P, _P, _I, _L, _P),
     },
 }
+RESTYPES = {"ssd_scan_scratch_bytes": _L}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -125,7 +133,7 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = list(argtypes)
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = RESTYPES.get(fn, _I)
         _loaded[name] = lib
     return lib
 

@@ -17,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import refuse_grad
@@ -26,7 +27,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.quant.ops import dequantize, quantize
 from repro_torch.kernels.quant.ref import dequantize_flat_ref, quantize_flat_ref
-from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ops import ssd_scan, tensor_core_path
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_sequential_ref
 from repro_torch.models import model as TM
 from repro_torch.models.params import init_params
@@ -193,6 +194,45 @@ def test_kernels_match_plain_versions_on_card():
         y_ref, h_ref = ssd_sequential_ref(x.float(), dt, a, bm, cm)
         assert (y - y_ref).abs().max().item() < 5e-3
         assert (hf - h_ref).abs().max().item() < 5e-3
+    # its bf16 tensor-core path (the state pass and the output pass, one
+    # launch at S <= 64) at B=2: one chunk (S = 8, 64), a chunk edge (65)
+    # and ragged lengths at mamba2's head shape, and head dims that are not
+    # a whole 64-wide tile; 5e-3 abs and 1e-4 of the largest magnitude
+    # against the f32 recurrence
+    for s, h, p, n in ((8, 4, 64, 128), (64, 4, 64, 128), (65, 4, 64, 128),
+                       (300, 4, 64, 128), (512, 4, 64, 128), (100, 3, 80, 64),
+                       (130, 2, 32, 128)):
+        x = F.silu(torch.randn((2, s, h, p), generator=gen, device=dev)).to(torch.bfloat16)
+        dt = F.softplus(torch.randn((2, s, h), generator=gen, device=dev) - 4.0)
+        a = -(1.0 + 15.0 * torch.rand((h,), generator=gen, device=dev))
+        bm, cm = (F.silu(torch.randn((2, s, n), generator=gen, device=dev)).to(torch.bfloat16)
+                  for _ in range(2))
+        assert tensor_core_path(x, bm)
+        n0 = ssd_scan.launches
+        y, hf = ssd_scan(x, dt, a, bm, cm, chunk=256)
+        torch.cuda.synchronize()
+        assert ssd_scan.launches == n0 + 1
+        y_ref, h_ref = ssd_sequential_ref(x.float(), dt, a, bm.float(), cm.float())
+        for out, ref in ((y, y_ref), (hf, h_ref)):
+            e = (out - ref).abs().max().item()
+            assert e < 5e-3 and e < 1e-4 * ref.abs().max().item(), (s, h, p, n, e)
+    # the library's path rule: bf16 with P a multiple of 16 and N 64 or
+    # 128 on the tensor cores, the rest on the CUDA-core kernel
+    for dtype, p, n, path in ((torch.bfloat16, 64, 128, True), (torch.bfloat16, 80, 64, True),
+                              (torch.bfloat16, 32, 128, True), (torch.bfloat16, 8, 16, False),
+                              (torch.bfloat16, 64, 32, False), (torch.bfloat16, 24, 128, False),
+                              (torch.float32, 64, 128, False)):
+        xz, bz = (torch.zeros(shape, dtype=dtype, device=dev)
+                  for shape in ((1, 8, 2, p), (1, 8, n)))
+        assert tensor_core_path(xz, bz) is path, (dtype, p, n)
+    # no token, on either path: an empty y and the zero state
+    for dtype in (torch.bfloat16, torch.float32):
+        y, hf = ssd_scan(torch.zeros((2, 0, 4, 64), dtype=dtype, device=dev),
+                         torch.zeros((2, 0, 4), device=dev), -torch.ones(4, device=dev),
+                         *(torch.zeros((2, 0, 128), dtype=dtype, device=dev) for _ in range(2)))
+        torch.cuda.synchronize()
+        assert y.shape == (2, 0, 4, 64) and hf.shape == (2, 4, 64, 128)
+        assert hf.abs().max().item() == 0.0
     # forward-only kernels refuse inputs that want a gradient
     qg = q.float().requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):

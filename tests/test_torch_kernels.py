@@ -17,6 +17,7 @@ from repro.models import ssm as jssm
 from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_tensor_core_emulation
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as tssm
 from test_kernels import DEC_CASES, FA_CASES, SSD_CASES
@@ -190,6 +191,57 @@ def test_ssd_scan_ragged_vs_ssd_ref(s, chunk):
     assert yt.dtype == torch.float32
     _check(f"ssd_scan ragged S={s} chunk={chunk} y vs ssd_ref", _err(yj, yt), SSD_TOL)
     _check(f"ssd_scan ragged S={s} chunk={chunk} h vs ssd_ref", _err(hj, htt), SSD_TOL)
+
+
+SSM_LAYER_TOL = 1e-4    # chip_smoke.py: K3 against the plain scan in each mamba2 layer
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_tensor_core_emulation_vs_jax(case):
+    """The tensor-core path's arithmetic (64-token chunks, f32 operands
+    as three bf16 terms, states passed in f32) on bf16 x/B/C against JAX's
+    chunked scan and the Pallas kernel in interpret mode, both in f32 on
+    the same bf16 values."""
+    b, s, h, p, n, L, ht = case
+    x, dt, A, Bm, C = _ssd_inputs(np.random.default_rng(9), b, s, h, p, n)
+    (xj, xt), (bj, bt), (cj, ct) = (_pair(v, True) for v in (x, Bm, C))
+    y, hf = ssd_tensor_core_emulation(xt, torch.from_numpy(dt), torch.from_numpy(A), bt, ct)
+    assert y.dtype == hf.dtype == torch.float32
+    assert y.shape == (b, s, h, p) and hf.shape == (b, h, p, n)
+    f32 = [v.astype(jnp.float32) for v in (xj, bj, cj)]
+    dtj, Aj = jnp.asarray(dt), jnp.asarray(A)
+    yc, hc = jssm.ssd_chunked(f32[0], dtj, Aj, f32[1], f32[2], chunk=L)
+    yp, hp = jax_ssd_scan(f32[0], dtj, Aj, f32[1], f32[2], chunk=L, head_tile=ht)
+    _check(f"tensor-core emulation y vs JAX ssd_chunked {case}", _err(yc, y), SSD_TOL)
+    _check(f"tensor-core emulation h vs JAX ssd_chunked {case}", _err(hc, hf), SSD_TOL)
+    _check(f"tensor-core emulation y vs Pallas {case}", _err(yp, y), SSD_TOL)
+    _check(f"tensor-core emulation h vs Pallas {case}", _err(hp, hf), SSD_TOL)
+
+
+def _silu(v):
+    return (v / (1.0 + np.exp(-v))).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,s", [(1, 300), (2, 100)])
+def test_ssd_tensor_core_emulation_mamba2_like(b, s):
+    """At mamba2-2.7b's head shape (P=64, N=128), four heads, inputs
+    distributed as chip_smoke.py makes them (silu'd bf16 x/B/C, dt =
+    softplus(z - 4), A in [-16, -1]): the emulation against the plain
+    chunked scan in f32 (the model's chunk of 256), relative to the
+    largest magnitude, under the per-layer limit the card is held to."""
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(_silu(_normal(rng, (b, s, 4, 64)))).to(torch.bfloat16)
+    dt = torch.from_numpy(np.log1p(np.exp(_normal(rng, (b, s, 4)) - 4.0)).astype(np.float32))
+    A = torch.from_numpy((-(1.0 + 15.0 * rng.random(4))).astype(np.float32))
+    Bm, C = (torch.from_numpy(_silu(_normal(rng, (b, s, 128)))).to(torch.bfloat16)
+             for _ in range(2))
+    y, hf = ssd_tensor_core_emulation(x, dt, A, Bm, C)
+    yr, hr = ssd_chunked_ref(x.float(), dt, A, Bm.float(), C.float(), chunk=256)
+    for what, out, ref in (("y", y, yr), ("h", hf, hr)):
+        rel = ((out - ref).abs().max() / ref.abs().max()).item()
+        print(f"[parity] tensor-core emulation {what} B={b} S={s} H=4 P=64 N=128 vs "
+              f"ssd_chunked f32: rel err {rel:.3g} (tol {SSM_LAYER_TOL})")
+        assert rel < SSM_LAYER_TOL
 
 
 @pytest.mark.parametrize("case", [(2, 64, 4, 8, 16, 16), (1, 100, 3, 16, 8, 32),
