@@ -20,16 +20,23 @@ nothing of JAX. Phases, each fatal on failure:
              the state, also at ragged lengths; the CUDA-core kernel),
              its bf16 tensor-core path at B = 2 (S = 8, 64, 65, 300, 512
              at mamba2's head shape, and P = 80, 32) within 5e-3 and 1e-4
-             of the largest magnitude of the f32 recurrence, int8 quantize /
+             of the largest magnitude of the f32 recurrence, the
+             flash-decoding kernel also at its split edges (DEC_SPLIT_CASES:
+             ragged per-row lengths at B = 4, max_len 1024, windows across
+             splits, softcap, hd 64 and 256, G = 8), int8 quantize /
              dequantize bit-equal (q, scales and the dequantized values,
              f32 and bf16 in and out, n = 1, 255, 257, 1,000,003 and the
              path's 805,306,368), and the main paths' shapes (K1 at the
              engine's bucket lengths 8 to 1024, and its wrapper's host
-             time per call; K3 at the serve pass's lengths 8 to 1024,
-             beside the CUDA-core kernel and the wrapper it had on the
-             same inputs, with the card also spun before each start
-             event (``device_ms``), the host time per call and each
-             launch's device time); kernel, plain version and the library
+             time per call; K2 at the serve path's decode lengths and at
+             uniform fills 1 to 1024, beside its one-split schedule (the
+             same kernel with a block per (b, kv head)), also with the
+             card spun before each start event (``device_ms``), with the
+             host time per call and each pass's device time; K3 at the
+             serve pass's lengths 8 to 1024, beside the CUDA-core kernel
+             and the wrapper it had on the same inputs, also spun, with
+             the host time per call and each launch's device time);
+             kernel, plain version and the library
              yardstick where one PyTorch call computes the same function
              (``scaled_dot_product_attention``, ``torch.mul``, which the
              port never calls) timed with CUDA events;
@@ -45,7 +52,10 @@ nothing of JAX. Phases, each fatal on failure:
              first request's prefill logits and three teacher-forced
              decode steps agree between kernels and plain versions; for
              mamba2, along a ragged prompt, each layer's scan and mixer
-             output with the kernel agree with the plain versions;
+             output with the kernel agree with the plain versions, and
+             at the shortest prompt past request 0's the plain path on
+             the card is read against the plain path on the CPU (the
+             model's bf16 noise floor, held to no limit);
              ``torch.profiler`` breaks down a step;
 5. train   - full-width internlm2-1.8b (24 layers), random init from seed
              0, trains 3 steps of 8 x 4096 tokens (2 microbatches) from
@@ -59,7 +69,8 @@ nothing of JAX. Phases, each fatal on failure:
              ``torch.profiler`` breaks down a fourth int8 step.
 
 The line before the last is a JSON object with each kernel's launches,
-error, times and bound (K1 and K3 once per timed length); the last line is
+error, times and bound (K1 and K3 once per timed length, K2 at the path's
+lengths and once per fill); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -94,6 +105,21 @@ FA_RAGGED = [(2, s, 4, 2, d, None, None) for s in (37, 100, 300, 511) for d in (
 FA_PATH_LENS = (8, 32, 64, 256, 512, 1024)
 DEC_CASES = [(2, 512, 4, 2, 64, None, None, 300), (1, 256, 8, 8, 128, 128, 50.0, 256),
              (2, 512, 4, 1, 64, None, None, 1), (1, 1024, 16, 2, 64, None, 30.0, 777)]
+# K2 at its split edges (B, S, Hq, Hkv, hd, window, softcap, per-row
+# lengths): ragged lengths at the serve path's decode shape, lengths on and
+# off the 64-row split edges, windows that start inside a split and cross
+# split edges, softcap, hd 64 and 256 with G = 8; each holds 1 and max_len
+DEC_SPLIT_CASES = [(4, 1024, 16, 8, 128, None, None, (1, 1024, 300, 77)),
+                   (4, 1024, 16, 8, 128, None, None, (64, 65, 1024, 1)),
+                   (4, 1024, 16, 8, 128, 200, None, (1024, 130, 1, 700)),
+                   (4, 1024, 16, 8, 128, 100, 30.0, (1, 1024, 257, 640)),
+                   (4, 1024, 32, 4, 64, None, 50.0, (1, 1024, 129, 500)),
+                   (4, 1024, 16, 2, 256, 300, None, (1024, 1, 333, 64))]
+# K2 timed at internlm2-1.8b's decode shape (4 slots, max_len 1024, 16 q / 8
+# kv heads of 128, f32 cache, bf16 q): the serve path's lengths, and
+# uniform fills (every row the same length)
+DEC_PATH_LENS = (1, 1024, 300, 77)
+DEC_FILLS = (1, 64, 256, 512, 1024)
 # tests/test_kernels.py: SSD_CASES (B, S, H, P, N, chunk, head tile)
 SSD_CASES = [(2, 64, 4, 8, 16, 16, 2), (1, 128, 6, 16, 8, 32, 3),
              (2, 256, 8, 16, 32, 64, 8)]
@@ -254,6 +280,16 @@ def phase_kernels(torch, dev):
                                    softcap=cap),
                   vc, tol, f"{dtype} B={b} S={s} Hq={hq} Hkv={hkv} hd={d} window={win} "
                   f"softcap={cap} cache_len={clen}")
+        for b, s, hq, hkv, d, win, cap, lens in DEC_SPLIT_CASES:
+            q, kc, vc = randn((b, 1, hq, d), dtype), randn((b, s, hkv, d), dtype), randn((b, s, hkv, d), dtype)
+            clen = torch.tensor(lens, dtype=torch.int32, device=dev)
+            check("decode_attention",
+                  decode_attention_kernel(q, kc, vc, clen, window=win, softcap=cap),
+                  decode_attention(q, kc, vc, clen, window=win, softcap=cap),
+                  decode_attention(q.float(), kc.float(), vc.float(), clen, window=win,
+                                   softcap=cap),
+                  vc, tol, f"split edges {dtype} B={b} S={s} Hq={hq} Hkv={hkv} hd={d} "
+                  f"window={win} softcap={cap} cache_len={list(lens)}")
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)   # 256 MB > L2
     rows = {}
@@ -290,33 +326,90 @@ def phase_kernels(torch, dev):
     torch.cuda.synchronize()
     print(f"[kernels] flash_attention wrapper: {host_us:.2f} us of host time per call "
           f"(1000 calls at S=64, no sync between)")
-    # K2 at the engine's decode shapes: B=4 slots, max_len=1024, f32 cache, bf16 q
-    lens = torch.tensor([1, 1024, 300, 77], dtype=torch.int32, device=dev)
-    q = randn((4, 1, 16, 128), torch.bfloat16)
-    kc, vc = randn((4, 1024, 8, 128), torch.float32), randn((4, 1024, 8, 128), torch.float32)
-    e = err(decode_attention_kernel(q, kc, vc, lens), decode_attention(q, kc, vc, lens))
-    if not e < TOL["float32"]:
-        raise AssertionError(f"decode_attention at the path shape disagrees: {e}")
-    qf = q.float().transpose(1, 2).contiguous()                       # exact upcast
-    ke, ve = (x.repeat_interleave(2, 2).transpose(1, 2).contiguous() for x in (kc, vc))
-    mask = (torch.arange(1024, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-    ms = cuda_ms(lambda: decode_attention_kernel(q, kc, vc, lens), flush=flush)
-    plain = cuda_ms(lambda: decode_attention(q, kc, vc, lens), flush=flush)
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qf, ke, ve, attn_mask=mask),
-                  flush=flush)
-    rows_read = int(lens.sum().item())                 # cache rows this run needs
-    kv_bytes = 2 * rows_read * 8 * 128 * 4
-    ops = 4.0 * rows_read * 16 * 128
-    b_ms, b_by = bound(nbytes(q, lens) + kv_bytes + 4 * 16 * 128 * 4, ops, F32_FLOPS)
-    print(f"[kernels] decode_attention path B=4 max_len=1024 lens={lens.tolist()} "
-          f"f32 cache: err {e:.3g} kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    rows["decode_attention"] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
-                                    bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-
+    rows.update(check_decode(torch, dev, randn, err, flush))
     rows.update(check_ssd(torch, dev, gen, randn, err, flush))
     rows.update(check_quant(torch, randn, flush))
     del flush
+    return rows
+
+
+def one_split_decode(q, k_cache, v_cache, cache_len):
+    """K2 in its one-split schedule: the same kernel with split_rows = S,
+    so a block per (b, kv head), the grid it had before its split, behind
+    the wrapper's checks, through the C entry. Timed beside
+    ``decode_attention_kernel``; it counts no launch of the path."""
+    from repro_torch.kernels import refuse_grad
+    from repro_torch.kernels.decode_attention.ops import _check, _row_lengths, launch
+
+    _check(q, k_cache, v_cache, None, None)
+    refuse_grad("decode_attention", q, k_cache, v_cache)
+    clen = _row_lengths(cache_len, q.shape[0], q.device)
+    return launch(q, k_cache, v_cache, clen, k_cache.shape[1], None, None)
+
+
+def check_decode(torch, dev, randn, err, flush):
+    """K2 at internlm2-1.8b's decode shape, at the serve path's lengths
+    (DEC_PATH_LENS) and at each uniform fill of DEC_FILLS: against the
+    plain version, and timed beside its one-split schedule
+    (``one_split_decode``), the plain version and SDPA: ``ms`` as for every
+    kernel, ``device_ms`` with the card spun before each start event (no
+    gap the host leaves is timed), both schedules in turns over seven
+    rounds; the host time per call and each pass's device time. One row
+    per setting."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention_kernel, split_rows
+    from repro_torch.kernels.decode_attention.ref import decode_attention
+
+    b, s, hq, hkv, d = 4, 1024, 16, 8, 128
+    rows_per_split = split_rows(b, s, hkv, d)
+    q = randn((b, 1, hq, d), torch.bfloat16)
+    kc, vc = randn((b, s, hkv, d), torch.float32), randn((b, s, hkv, d), torch.float32)
+    qf = q.float().transpose(1, 2).contiguous()                       # exact upcast
+    ke, ve = (x.repeat_interleave(hq // hkv, 2).transpose(1, 2).contiguous() for x in (kc, vc))
+    rows = {}
+    for key, lens in [("path", DEC_PATH_LENS)] + [(n, (n,) * b) for n in DEC_FILLS]:
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        ref = decode_attention(q, kc, vc, lens)
+        e = err(decode_attention_kernel(q, kc, vc, lens), ref)
+        e_one = err(one_split_decode(q, kc, vc, lens), ref)
+        if not max(e, e_one) < TOL["float32"]:
+            raise AssertionError(f"decode_attention at lengths {lens.tolist()} disagrees: "
+                                 f"split {e}, one split {e_one}")
+        new, old = (lambda: decode_attention_kernel(q, kc, vc, lens)), \
+            (lambda: one_split_decode(q, kc, vc, lens))
+        # both schedules in turns, seven rounds of 30 launches, each time
+        # the median over the rounds: a stall of the shared host shifts a
+        # whole round, and the two differ by a few tenths of a us at low fills
+        times = [[] for _ in range(4)]
+        for r in range(7):
+            order = (0, 1, 2, 3) if r % 2 == 0 else (1, 0, 3, 2)
+            for i in order:
+                times[i].append(cuda_ms((new, old)[i % 2], iters=30, flush=flush,
+                                        spin=i >= 2))
+        ms, one, dev_ms, one_dev = (float(np.median(t)) for t in times)
+        plain = cuda_ms(lambda: decode_attention(q, kc, vc, lens), flush=flush)
+        mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qf, ke, ve, attn_mask=mask),
+                      flush=flush)
+        host, one_host = host_us_per_call([new, old])
+        passes = kernel_us(torch, new)
+        rows_read = int(lens.sum().item())             # cache rows this run needs
+        kv_bytes = 2 * rows_read * hkv * d * 4
+        ops = 4.0 * rows_read * hq * d
+        b_ms, b_by = bound(nbytes(q, lens) + kv_bytes + b * hq * d * 4, ops, F32_FLOPS)
+        print(f"[kernels] decode_attention {'path' if key == 'path' else 'fill'} B={b} "
+              f"max_len={s} lens={lens.tolist()} f32 cache: err {e:.3g} (one split "
+              f"{e_one:.3g}) kernel {ms:.4f} ms ({dev_ms:.4f} spun; split_rows "
+              f"{rows_per_split}; passes {passes} us), one split {one:.4f} ms ({one_dev:.4f} "
+              f"spun), host {host:.2f} against {one_host:.2f} us a call, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}; {kv_bytes / 1e6:.2f} MB of cache rows)")
+        rows[("decode_attention", key)] = dict(
+            max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+            device_ms=dev_ms, split_rows=rows_per_split, one_split_ms=one,
+            one_split_device_ms=one_dev, host_us=host, one_split_host_us=one_host,
+            launch_us=passes,
+            shape=f"B={b} max_len={s} lens={lens.tolist()} Hq={hq} Hkv={hkv} hd={d} "
+                  "f32 cache, bf16 q")
     return rows
 
 
@@ -706,6 +799,8 @@ def phase_serve(torch, dev, arch, path_kernels):
     if n_ssm:
         check_ssm_layers(torch, dev, cfg, eng.params,
                          max((p for p in prompts if len(p) % cfg.ssm_chunk), key=len))
+        bf16_floor(torch, dev, cfg, eng.params,
+                   min((p for p in prompts if len(p) > len(r0.prompt)), key=len))
     profile_serve(torch, eng, cfg, rng)
     return launches
 
@@ -751,6 +846,32 @@ def check_ssm_layers(torch, dev, cfg, params, prompt):
     print(f"[serve] {cfg.name}: kernels vs plain, prefill logits of the same prompt: "
           f"rel err {rel(*logits):.3g} (the model's bf16 noise at {cfg.num_layers} "
           f"layers; no limit)")
+
+
+def bf16_floor(torch, dev, cfg, params, prompt):
+    """The model's own bf16 noise at one prompt: the plain path's prefill
+    logits on the card against the same path on the CPU, with the same
+    weights (the engine's copy moved to the host), printed beside kernels
+    against plain on the card. Held to no limit: it reads the floor under
+    the kernels-vs-plain gap, which MODEL_REL_TOL holds at request 0."""
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_map
+
+    def rel(a, b):
+        return ((a.float().cpu() - b.float().cpu()).abs().max() / b.float().abs().max()).item()
+
+    toks = torch.as_tensor(prompt, device=dev)[None]
+    card = {impl: M.prefill(cfg, params, toks, toks.shape[1], impl=impl,
+                            cache_dtype=torch.float32)[0][0, 0] for impl in ("auto", "ref")}
+    t0 = time.perf_counter()
+    host = tree_map(lambda t: t.cpu(), params)
+    cpu = M.prefill(cfg, host, toks.cpu(), toks.shape[1], impl="ref",
+                    cache_dtype=torch.float32)[0][0, 0]
+    del host
+    print(f"[serve] {cfg.name}: prompt {len(prompt)}: prefill logits, plain on the card vs "
+          f"plain on the CPU: rel err {rel(card['ref'], cpu):.3g}; kernels vs plain on the "
+          f"card {rel(card['auto'], card['ref']):.3g} (the model's bf16 noise floor; no "
+          f"limit; the CPU pass {time.perf_counter() - t0:.1f} s)")
 
 
 def profile_serve(torch, eng, cfg, rng):
@@ -995,7 +1116,8 @@ def main() -> int:
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:26",
-             launches=launches["decode_attention"], **rows["decode_attention"]),
+             launches=launches["decode_attention"], **rows[("decode_attention", key)])
+        for key in ("path",) + DEC_FILLS
     ] + [
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",

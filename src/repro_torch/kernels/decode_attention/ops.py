@@ -3,8 +3,11 @@ in the model zoo's (B,1,Hq,hd) / (B,S,Hkv,hd) layout, with a per-row
 ``cache_len``.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-version (``ref.decode_attention``). ``decode_attention_kernel.launches``
-counts the launches of the kernel.
+version (``ref.decode_attention``). The kernel splits the cache length
+over blocks (``split_rows`` rows each, from the shapes alone) and merges
+the splits' partial softmax states in a second pass, through an f32
+scratch allocated here. ``decode_attention_kernel.launches`` counts the
+calls that launched it (both passes, one count).
 """
 from __future__ import annotations
 
@@ -18,6 +21,21 @@ from repro_torch.kernels.decode_attention.ref import decode_attention
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_GROUPS = 8
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+MIN_SPLIT_ELEMS = 8192    # a split reads at least 64 rows of hd 128 per kv head
+
+
+def split_rows(b: int, s: int, hkv: int, hd: int) -> int:
+    """Cache rows per block of the split pass, from the shapes alone (the
+    host never reads ``cache_len``, which would sync with the card).
+
+    A full cache gives at least two blocks an SM: the largest power of
+    two at most ``s / ceil(2 * SMS / (b * hkv))``. A floor of
+    ``MIN_SPLIT_ELEMS / hd`` rows (64 at hd 128) keeps short caches from
+    paying for empty splits; at most ``s``, at least 1."""
+    want = -(-2 * SMS // max(1, b * hkv))             # splits for 2 blocks an SM
+    rows = 1 << (max(1, s // want).bit_length() - 1)  # a power of two <= s / want
+    return max(1, min(s, max(rows, MIN_SPLIT_ELEMS // hd)))
 
 
 def _check(q, k_cache, v_cache, window, softcap):
@@ -80,23 +98,38 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
                                 window=window, softcap=softcap)
     _check(q, k_cache, v_cache, window, softcap)
     refuse_grad("decode_attention", q, k_cache, v_cache)
+    if q.device.index != torch.cuda.current_device():    # launch from q's device
+        with torch.cuda.device(q.device):
+            return decode_attention_kernel(q, k_cache, v_cache, cache_len,
+                                           window=window, softcap=softcap)
+    b, _, _, d = q.shape
+    out = launch(q, k_cache, v_cache, _row_lengths(cache_len, b, q.device),
+                 split_rows(b, k_cache.shape[1], k_cache.shape[2], d), window, softcap)
+    if out.numel():
+        decode_attention_kernel.launches += 1
+    return out
+
+
+def launch(q, k_cache, v_cache, clen, rows: int, window, softcap) -> torch.Tensor:
+    """The C entry on checked inputs on the current device, with ``rows``
+    cache rows a split; counts nothing. ``clen``: (B,) int32 on q's device."""
     b, _, hq, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
-    clen = _row_lengths(cache_len, b, q.device)
     out = torch.empty(q.shape, dtype=k_cache.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    lib = _build.library("decode_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.decode_forward(q.data_ptr(), k_cache.data_ptr(),
-                                 v_cache.data_ptr(), clen.data_ptr(),
-                                 out.data_ptr(), DTYPES[q.dtype],
-                                 DTYPES[k_cache.dtype], b, s, hq, hkv, d,
-                                 window or 0, 1.0 / (d ** 0.5), softcap or 0.0,
-                                 stream)
+    # the splits' partial states, f32 (B, Hkv, nsplit, G, hd + 2): acc, m, l
+    nsplit = max(1, -(-s // rows))
+    scratch = torch.empty(b * hkv * nsplit * (hq // hkv) * (d + 2), dtype=torch.float32,
+                          device=q.device)
+    # the raw handle: torch.cuda.current_stream(...).cuda_stream builds a
+    # Stream object, several us of host time on a path of one-token calls
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    err = _build.library("decode_attention").decode_forward(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), clen.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), DTYPES[q.dtype], DTYPES[k_cache.dtype], b, s, hq, hkv, d, rows,
+        window or 0, 1.0 / (d ** 0.5), softcap or 0.0, stream)
     _build.check(err, "decode_attention launch")
-    decode_attention_kernel.launches += 1
     return out
 
 

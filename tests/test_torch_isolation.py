@@ -9,6 +9,7 @@
 - on a card (``-m gpu``), each kernel agrees with its plain version.
 """
 import ast
+import importlib.util
 import os
 import subprocess
 import sys
@@ -179,6 +180,30 @@ def test_kernels_match_plain_versions_on_card():
     ref = decode_attention(q, kc, vc, lens)
     assert (out[:2] - ref[:2]).abs().max().item() < 2e-5
     assert out[2].abs().max().item() == 0.0          # no visible key: 0, not NaN
+    # its split pass and LSE merge at split edges: chip_smoke.py's
+    # DEC_SPLIT_CASES, per-row lengths, in f32 and bf16 (2e-5, 2e-2, and
+    # within half a bf16 step of the f32 result plus 2^-16 max|v|)
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for b, s, hq, hkv, d, win, cap, lengths in smoke.DEC_SPLIT_CASES:
+            qs = torch.randn((b, 1, hq, d), generator=gen, device=dev).to(dtype)
+            ks, vs = (torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+                      for _ in range(2))
+            ls = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            n0 = decode_attention_kernel.launches
+            out = decode_attention_kernel(qs, ks, vs, ls, window=win, softcap=cap)
+            torch.cuda.synchronize()
+            assert decode_attention_kernel.launches == n0 + 1
+            ref = decode_attention(qs, ks, vs, ls, window=win, softcap=cap)
+            assert (out.float() - ref.float()).abs().max().item() < tol, (b, s, d, win, cap)
+            if dtype == torch.bfloat16:
+                r32 = decode_attention(qs.float(), ks.float(), vs.float(), ls, window=win,
+                                       softcap=cap)
+                _, e = torch.frexp(torch.maximum(out.float().abs(), r32.abs()))
+                excess = (out.float() - r32).abs() - torch.ldexp(torch.ones_like(r32), e - 9)
+                assert excess.max().item() <= 2.0 ** -16 * vs.float().abs().max().item()
     # the SSD scan: an f32 SSD_CASES case, and a ragged length in bf16
     # against the recurrence (5e-3, tests/test_kernels.py)
     for (b, s, h, p, n, chunk), dtype in (((2, 256, 8, 16, 32, 64), torch.float32),

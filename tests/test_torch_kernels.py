@@ -3,6 +3,8 @@ package: the Pallas kernels in interpret mode and the plain functions
 the JAX model calls (attention, and the SSD scan with the rest of
 ``models/ssm.py``). Inputs are made with numpy from a seed and handed to
 both frameworks."""
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +16,8 @@ from repro.models.attention import attention_ref as jax_attention_ref
 from repro.models.attention import decode_attention as jax_decode_attention
 from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan
 from repro.models import ssm as jssm
-from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
+from repro_torch.kernels.decode_attention.ops import SMS, decode_attention_kernel, split_rows
+from repro_torch.kernels.decode_attention.ref import decode_attention_split_emulation
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_tensor_core_emulation
@@ -99,6 +102,108 @@ def test_decode_per_row_vs_model_decode(case):
     assert out.dtype == vt.dtype
     _check(f"decode_attention per-row vs decode_attention {case}", _err(ref, out),
            2e-2 if c16 else 2e-5)
+
+
+# K2's split pass and LSE merge (ref.decode_attention_split_emulation):
+# rows a split, None for the one-split schedule (split_rows = S)
+SPLIT_ROWS = (16, 64, None)
+# B, S, Hq, Hkv, d, window, softcap, per-row lengths: lengths on and off
+# split edges; a window that starts inside a split; cache_len 1 and 0
+SPLIT_EDGE_CASES = [
+    (4, 128, 4, 2, 32, None, None, (16, 17, 64, 65)),
+    (3, 128, 8, 2, 32, 40, None, (100, 70, 128)),
+    (3, 128, 4, 1, 16, 24, 30.0, (1, 0, 128)),
+]
+
+
+@pytest.mark.parametrize("rows", SPLIT_ROWS)
+@pytest.mark.parametrize("case", DEC_CASES)
+def test_decode_split_emulation_vs_pallas(case, rows):
+    """The kernel's split and merge against the Pallas kernel on the JAX
+    package's decode cases (the inputs of test_decode_plain_vs_pallas)."""
+    b, s, hq, hkv, d, win, cap, clen = case
+    rng = np.random.default_rng(1)
+    qj, qt = _pair(_normal(rng, (b, 1, hq, d)), False)
+    kj, kt = _pair(_normal(rng, (b, s, hkv, d)), False)
+    vj, vt = _pair(_normal(rng, (b, s, hkv, d)), False)
+    ref = jax_decode_kernel(qj, kj, vj, jnp.asarray(clen), window=win,
+                            softcap=cap, kv_block=128)
+    out = decode_attention_split_emulation(qt, kt, vt, clen, rows or s, window=win,
+                                           softcap=cap)
+    _check(f"decode split emulation rows={rows or s} vs Pallas {case}", _err(ref, out), 2e-5)
+
+
+@pytest.mark.parametrize("scalar", [False, True], ids=["per_row", "scalar"])
+@pytest.mark.parametrize("rows", SPLIT_ROWS)
+@pytest.mark.parametrize("case", PER_ROW_CASES)
+def test_decode_split_emulation_vs_model_decode(case, rows, scalar):
+    """Against the plain decode_attention the JAX model calls, with
+    per-row lengths and with one scalar length (the first row's)."""
+    b, s, hq, hkv, d, win, cap, lens, q16, c16 = case
+    rng = np.random.default_rng(2)
+    qj, qt = _pair(_normal(rng, (b, 1, hq, d)), q16)
+    kj, kt = _pair(_normal(rng, (b, s, hkv, d)), c16)
+    vj, vt = _pair(_normal(rng, (b, s, hkv, d)), c16)
+    lens = np.asarray(lens[0] if scalar else lens, np.int32)
+    ref = jax_decode_attention(qj, kj, vj, jnp.asarray(lens), window=win, softcap=cap)
+    out = decode_attention_split_emulation(qt, kt, vt, torch.from_numpy(lens), rows or s,
+                                           window=win, softcap=cap)
+    assert out.dtype == vt.dtype and out.shape == qt.shape
+    _check(f"decode split emulation rows={rows or s} vs decode_attention {case} "
+           f"cache_len={lens.tolist()}", _err(ref, out), 2e-2 if c16 else 2e-5)
+
+
+@pytest.mark.parametrize("rows", SPLIT_ROWS)
+@pytest.mark.parametrize("case", SPLIT_EDGE_CASES)
+def test_decode_split_emulation_edges_vs_pallas(case, rows):
+    """Split edges, windows and lengths 1 and 0, each row against the
+    Pallas kernel at its own scalar length: a row with no visible key is
+    0, as Pallas gives it."""
+    b, s, hq, hkv, d, win, cap, lens = case
+    rng = np.random.default_rng(5)
+    qj, qt = _pair(_normal(rng, (b, 1, hq, d)), False)
+    kj, kt = _pair(_normal(rng, (b, s, hkv, d)), False)
+    vj, vt = _pair(_normal(rng, (b, s, hkv, d)), False)
+    out = decode_attention_split_emulation(qt, kt, vt, torch.tensor(lens), rows or s,
+                                           window=win, softcap=cap)
+    for i, n in enumerate(lens):
+        ref = jax_decode_kernel(qj[i:i + 1], kj[i:i + 1], vj[i:i + 1], jnp.asarray(n),
+                                window=win, softcap=cap, kv_block=128)
+        _check(f"decode split emulation rows={rows or s} vs Pallas {case[:7]} row {i} "
+               f"cache_len={n}", _err(ref, out[i:i + 1]), 2e-5)
+        if n == 0:
+            assert out[i].abs().max().item() == 0.0
+
+
+def test_split_rows_depends_on_shapes_only():
+    """split_rows reads B, S, Hkv and hd, never cache_len; a full cache at
+    the serve path's decode shape (4 slots, max_len 1024, 8 kv heads of
+    128) gives at least two blocks an SM; a floor keeps short caches in
+    one split; it stays within [1, S]."""
+    assert list(inspect.signature(split_rows).parameters) == ["b", "s", "hkv", "hd"]
+    rows = split_rows(4, 1024, 8, 128)
+    assert rows == 64 and 4 * 8 * -(-1024 // rows) >= 2 * SMS
+    for b, s, hkv, hd in [(1, 256, 8, 128), (2, 512, 2, 64), (1, 1024, 2, 256),
+                          (64, 1024, 8, 128), (1, 8, 1, 16), (3, 100, 4, 128)]:
+        r = split_rows(b, s, hkv, hd)
+        assert 1 <= r <= s and r == split_rows(b, s, hkv, hd)
+        assert r >= min(s, 8192 // hd)                   # the floor
+    assert split_rows(1, 48, 8, 128) == 48                 # below the floor: one split
+
+
+def test_decode_split_emulation_path_shape():
+    """The serve path's decode shape with the wrapper's own split_rows:
+    B=4, max_len 1024, 16 q / 8 kv heads of 128, f32 cache, bf16 q,
+    lengths [1, 1024, 300, 77], against the model's decode_attention."""
+    rng = np.random.default_rng(6)
+    qj, qt = _pair(_normal(rng, (4, 1, 16, 128)), True)
+    kj, kt = _pair(_normal(rng, (4, 1024, 8, 128)), False)
+    vj, vt = _pair(_normal(rng, (4, 1024, 8, 128)), False)
+    lens = np.asarray([1, 1024, 300, 77], np.int32)
+    ref = jax_decode_attention(qj, kj, vj, jnp.asarray(lens))
+    out = decode_attention_split_emulation(qt, kt, vt, torch.from_numpy(lens),
+                                           split_rows(4, 1024, 8, 128))
+    _check("decode split emulation at the path shape vs decode_attention", _err(ref, out), 2e-5)
 
 
 @pytest.mark.parametrize("s,win", [(100, None), (37, 16), (129, None)])
