@@ -57,6 +57,23 @@ nothing of JAX. Phases, each fatal on failure:
              the card is read against the plain path on the CPU (the
              model's bf16 noise floor, held to no limit);
              ``torch.profiler`` breaks down a step;
+   staged  - right after internlm2's serve phase, from its bf16 weights and
+             the same eight prompts (16 greedy tokens each, 4 slots, 1024
+             rows, f32 cache), on the §5.2 KV fabric (``kv_fabric()``):
+             the sync ``ServeEngine`` on a ``FabricRuntime`` and the
+             ``StagedServeEngine`` with per-request placement, for a burst
+             at t = 0 and for arrivals 0.5 simulated s apart, then the
+             staged engine's decode replica pool on kv_fabric() merged
+             with two spare SoC read paths, one replica added while
+             decoding and retired with a shard in flight; each run's
+             tokens must equal the timed ServeEngine pass's, K1 launch
+             24 x 8 times and K2 24 x the run's decode steps (counts set
+             to 0 just before each run), and each staged run's
+             per-request TTFT, finish time, placement and token count
+             equal those of the ``compute="sim"`` engine on the same
+             requests and fabric; "[staged]" lines give the simulated
+             TTFT p50/p99, makespan and placements, the host wall, tok/s
+             and host ms per decode step beside the sync pass's;
 5. train   - full-width internlm2-1.8b (24 layers), random init from seed
              0, trains 3 steps of 8 x 4096 tokens (2 microbatches) from
              the seed-0 ``TokenPipeline`` through the port's ``Trainer``,
@@ -70,7 +87,8 @@ nothing of JAX. Phases, each fatal on failure:
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound (K1 and K3 once per timed length, K2 at the path's
-lengths and once per fill); the last line is
+lengths and once per fill; K1's and K2's rows also carry the staged
+runs' launches, ``staged_launches``); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -140,6 +158,12 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # path) leave at most 2^-18 max|v|, weights rounded to bf16 about 2^-9
 EXCESS_TOL = 2.0 ** -16
 MODEL_REL_TOL = 4e-2            # as tests/test_models.py: bf16 rounds differently
+STAGED_SPACING = 0.5            # simulated s between arrivals; a 512-token prefill
+#                                 takes ~1.7 s on kv_fabric()'s DMA path
+# the decode pool's scale-out and scale-in instants (simulated s): both fall
+# in the decode window at 5.889-5.94 s of the burst at these prompts, and
+# the scale-in cancels a shard in flight (checked on every run)
+POOL_SCALE_OUT_T, POOL_SCALE_IN_T = 5.890, 5.893
 # K4: n = 1 and the ragged 255 / 257 / 1,000,003, and the path shape,
 # internlm2-1.8b's largest leaf layers.mlp.w_in (24, 2048, 2, 8192)
 QUANT_SIZES = (1, 255, 257, 1_000_003)
@@ -630,12 +654,13 @@ def check_quant(torch, randn, flush):
 
 
 class _Probe:
-    """Mixed into ServeEngine. While ``checking``, every logit row's
+    """Mixed into an engine. While ``checking``, every logit row's
     finiteness is folded into one device flag. Otherwise it only reads
     the host clock, adding no device work and no sync: prefill per
     bucket (``_prefill_request`` ends in ``int(token)``, a host sync) and
-    decode per step, from ``_decode_compute`` to the end of
-    ``_finish_decode`` (whose ``.cpu()`` is the step's host sync)."""
+    decode per step, the time inside ``_decode_compute`` plus the time
+    inside ``_finish_decode`` (whose ``.cpu()`` is the step's host sync;
+    the staged engine runs other stages between the two)."""
 
     checking = False
 
@@ -657,15 +682,17 @@ class _Probe:
         return out
 
     def _decode_compute(self, act):
-        self._t_decode = time.perf_counter()
+        t0 = time.perf_counter()
         logits = super()._decode_compute(act)
         if self.checking:
             self.finite &= self._torch.isfinite(logits).all()
+        self._decode_host_ms = (time.perf_counter() - t0) * 1e3
         return logits
 
     def _finish_decode(self, act, logits):
+        t0 = time.perf_counter()
         retired = super()._finish_decode(act, logits)
-        self.decode_ms.append((time.perf_counter() - self._t_decode) * 1e3)
+        self.decode_ms.append(self._decode_host_ms + (time.perf_counter() - t0) * 1e3)
         return retired
 
 
@@ -683,7 +710,9 @@ def launch_counters():
 def phase_serve(torch, dev, arch, path_kernels):
     """Serve 8 requests of full-width ``arch``; every kernel named in
     ``path_kernels`` must launch in the timed pass. Returns the timed
-    pass's launch counts."""
+    pass's launch counts and what the staged phase compares with: the
+    engine's bf16 weights, the prompts, the timed pass's tokens and its
+    host figures."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.models.params import init_params, layer_period, num_groups, slot_kind
@@ -801,8 +830,11 @@ def phase_serve(torch, dev, arch, path_kernels):
                          max((p for p in prompts if len(p) % cfg.ssm_chunk), key=len))
         bf16_floor(torch, dev, cfg, eng.params,
                    min((p for p in prompts if len(p) > len(r0.prompt)), key=len))
+    sync = dict(params=eng.params, prompts=prompts,
+                tokens=[list(r.out_tokens) for r in reqs], wall=wall, tok_s=toks / wall,
+                decode_ms=float(np.median(d)))
     profile_serve(torch, eng, cfg, rng)
-    return launches
+    return launches, sync
 
 
 def check_ssm_layers(torch, dev, cfg, params, prompt):
@@ -917,6 +949,159 @@ def profile_serve(torch, eng, cfg, rng):
         for ms, n, key in host:
             print(f"[profile]   host   {ms:8.3f} ms  {n:5d}x  {key[:90]}")
     eng.run()
+
+
+def _timeline(reqs):
+    """What simulated time decides, per request."""
+    return [(r.rid, r.first_token_time, r.finish_time, r.placement, len(r.out_tokens))
+            for r in reqs]
+
+
+def phase_staged(torch, dev, sync):
+    """Full-width internlm2-1.8b on the §5.2 KV fabric (``kv_fabric()``)
+    through the port's sync and staged engines, from ``phase_serve``'s
+    bf16 weights (``compute_copy`` keeps bf16 leaves as they are, so no
+    second copy exists) and its eight prompts: a burst at t = 0, arrivals
+    STAGED_SPACING simulated s apart, and the staged engine's decode
+    replica pool on kv_fabric() merged with two spare SoC read paths,
+    scaled out while decoding and in with a shard in flight. Each run's
+    tokens must be the timed ServeEngine pass's, K1 must launch once per
+    layer and request and K2 once per layer and decode step (counts set
+    to 0 just before each run), and each staged run's per-request
+    simulated timeline must equal that of the ``compute="sim"`` engine on
+    the same requests and fabric. Returns the staged runs' launch counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.fabric import OPS_PER_S, Fabric, Path, merge_fabrics
+    from repro_torch.core.runtime import FabricRuntime
+    from repro_torch.serve.disagg import PathCosts, kv_fabric, kv_serve_time_model
+    from repro_torch.serve.engine import Request, ServeEngine, StagedServeEngine
+
+    class Sync(_Probe, ServeEngine):
+        pass
+
+    class Staged(_Probe, StagedServeEngine):
+        pass
+
+    cfg = get_config("internlm2-1.8b")
+    n_layers = cfg.num_layers
+    spare = Fabric.of(*(Path(f"spare_read:{i}", PathCosts().read_soc_rate, OPS_PER_S,
+                             latency=1e-6, kind="rdma") for i in range(2)))
+    # the pool serves the SoC-cache reads; host-placed reads keep host_read
+    pool_tm = dataclasses.replace(kv_serve_time_model(), decode_path="soc_read",
+                                  placement_paths={"host": "host_read"})
+    kw = dict(slots=4, max_len=1024)
+    counters = launch_counters()
+    staged_launches = {"flash_attention": 0, "decode_attention": 0}
+
+    def requests(spacing):
+        return [Request(rid=i, prompt=p, max_new_tokens=16, arrival=i * spacing)
+                for i, p in enumerate(sync["prompts"])]
+
+    def pool_events(eng, seen):
+        rt = eng.runtime
+        rt.clock.at(POOL_SCALE_OUT_T, lambda: (
+            seen.update(active=sum(a is not None for a in eng.active)),
+            eng.add_decode_replica("spare_read:0")))
+        rt.clock.at(POOL_SCALE_IN_T, lambda: (
+            seen.update(inflight=len(eng._extras()[-1].inflight)),
+            eng.retire_decode_replica()))
+
+    def build(kind, compute, spacing):
+        """(engine, requests, pool-event record) of one run, submitted."""
+        dev_kw = dict(device=dev) if compute == "torch" else {}
+        args = (cfg, sync["params"]) if compute == "torch" else (None, None)
+        seen = {}
+        if kind == "sync":
+            eng = Sync(*args, fabric=kv_fabric(), runtime=FabricRuntime(kv_fabric()),
+                       time_model=kv_serve_time_model(), **dev_kw, **kw)
+        elif kind == "staged":
+            cls = Staged if compute == "torch" else StagedServeEngine
+            eng = cls(*args, compute=compute, fabric=kv_fabric(),
+                      time_model=kv_serve_time_model(), plan_placement=True, **dev_kw, **kw)
+        else:
+            cls = Staged if compute == "torch" else StagedServeEngine
+            eng = cls(*args, compute=compute,
+                      runtime=FabricRuntime(merge_fabrics(kv_fabric(), spare)),
+                      time_model=pool_tm, plan_placement=True, decode_pool=True,
+                      **dev_kw, **kw)
+            pool_events(eng, seen)
+        reqs = requests(spacing)
+        for r in reqs:
+            eng.submit(r)
+        return eng, reqs, seen
+
+    runs = [("sync", "burst", 0.0), ("staged", "burst", 0.0),
+            ("sync", "spaced", STAGED_SPACING), ("staged", "spaced", STAGED_SPACING),
+            ("pool", "burst", 0.0)]
+    figures = {}
+    for kind, label, spacing in runs:
+        name = f"{kind} {label}"
+        eng, reqs, seen = build(kind, "torch", spacing)
+        eng._probe_reset(torch)
+        torch.cuda.synchronize()
+        steps0 = eng.stats["decode_steps"]
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: counters[n].launches for n in ("flash_attention", "decode_attention")}
+        steps = eng.stats["decode_steps"] - steps0
+        toks = sum(len(r.out_tokens) for r in reqs)
+        ttft = [r.ttft for r in reqs]
+        p50, p99 = np.percentile(ttft, [50, 99])
+        makespan = max(r.finish_time for r in reqs)
+        placements = (eng.placements if kind != "sync"
+                      else {eng.placement.location: len(reqs)})
+        d = np.asarray(eng.decode_ms)
+        figures[name] = (p50, p99)
+        print(f"[staged] internlm2-1.8b {name}: simulated TTFT p50={p50:.6f} s "
+              f"p99={p99:.6f} s makespan={makespan:.6f} s placements={placements}"
+              + (f" scale events {[(e['event'], e['t']) for e in eng.scale_events]}, "
+                 f"{seen['active']} slots decoding at the scale-out, {seen['inflight']} "
+                 f"shard(s) in flight at the scale-in" if kind == "pool" else ""))
+        print(f"[staged] internlm2-1.8b {name}: host wall {wall:.3f} s, {toks} tokens = "
+              f"{toks / wall:.2f} tok/s, {steps} decode steps, host ms per decode step "
+              f"median {np.median(d):.2f} mean {d.mean():.2f}; the sync ServeEngine's "
+              f"timed pass: {sync['wall']:.3f} s, {sync['tok_s']:.2f} tok/s, "
+              f"{sync['decode_ms']:.2f} ms; launches {launches}")
+        if not all(r.done and len(r.out_tokens) == 16 for r in reqs):
+            raise AssertionError(f"{name}: not every request finished with 16 tokens")
+        if [r.out_tokens for r in reqs] != sync["tokens"]:
+            parted = [r.rid for r, t in zip(reqs, sync["tokens"]) if r.out_tokens != t]
+            raise AssertionError(f"{name}: tokens of requests {parted} differ from the "
+                                 "timed ServeEngine pass's")
+        expect = {"flash_attention": n_layers * len(reqs),
+                  "decode_attention": n_layers * steps}
+        if launches != expect:
+            raise AssertionError(f"{name}: launches {launches}, expected {expect}")
+        if kind == "sync":
+            continue
+        for n in staged_launches:
+            staged_launches[n] += launches[n]
+        if sum(eng.placements.values()) != len(reqs):
+            raise AssertionError(f"{name}: placements {eng.placements} do not sum to "
+                                 f"{len(reqs)}")
+        if kind == "pool" and not (seen["active"] > 0 and seen["inflight"] > 0):
+            raise AssertionError(f"{name}: the scale events missed the decode: {seen}")
+        sim, sim_reqs, sim_seen = build(kind, "sim", spacing)
+        sim.run()
+        if _timeline(reqs) != _timeline(sim_reqs) or sim_seen != seen:
+            raise AssertionError(f"{name}: simulated timeline differs from the sim "
+                                 f"engine's: {_timeline(reqs)} != {_timeline(sim_reqs)}")
+        print(f"[staged] internlm2-1.8b {name}: per-request TTFT, finish time, placement "
+              f"and token count equal the compute='sim' engine's: True")
+        del eng
+        gc.collect()
+    for label in ("burst", "spaced"):
+        print(f"[staged] internlm2-1.8b {label}: simulated TTFT p99 sync "
+              f"{figures['sync ' + label][1]:.6f} s, staged "
+              f"{figures['staged ' + label][1]:.6f} s (on kv_fabric() two 30 M ops/s DMA "
+              f"prefills share the path and the 512-token prompts set the tail)")
+    return staged_launches
 
 
 def phase_train(torch, dev):
@@ -1091,12 +1276,16 @@ def main() -> int:
 
     # 4. serve: internlm2 (K1, K2), then mamba2 (K3) once internlm2's
     #    engine is freed
-    launches = phase_serve(torch, dev, "internlm2-1.8b",
-                           ("flash_attention", "decode_attention"))
+    launches, sync = phase_serve(torch, dev, "internlm2-1.8b",
+                                 ("flash_attention", "decode_attention"))
     lap("serve internlm2-1.8b")
     gc.collect()
+    staged_launches = phase_staged(torch, dev, sync)
+    del sync
+    lap("serve staged internlm2-1.8b")
+    gc.collect()
     torch.cuda.empty_cache()
-    launches_ssm = phase_serve(torch, dev, "mamba2-2.7b", ("ssd_scan",))
+    launches_ssm = phase_serve(torch, dev, "mamba2-2.7b", ("ssd_scan",))[0]
     lap("serve mamba2-2.7b")
     gc.collect()
     torch.cuda.empty_cache()
@@ -1109,14 +1298,18 @@ def main() -> int:
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:28",
-             launches=launches["flash_attention"], shape=f"B=1 S={s} Hq=16 Hkv=8 hd=128 bf16",
+             launches=launches["flash_attention"],
+             staged_launches=staged_launches["flash_attention"],
+             shape=f"B=1 S={s} Hq=16 Hkv=8 hd=128 bf16",
              **rows[("flash_attention", s)])
         for s in FA_PATH_LENS
     ] + [
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:26",
-             launches=launches["decode_attention"], **rows[("decode_attention", key)])
+             launches=launches["decode_attention"],
+             staged_launches=staged_launches["decode_attention"],
+             **rows[("decode_attention", key)])
         for key in ("path",) + DEC_FILLS
     ] + [
         dict(name="ssd_scan", route="cuda",
