@@ -83,22 +83,43 @@ nothing of JAX. Phases, each fatal on failure:
              each step and through the dequantize kernel each step, and
              no attention or SSD kernel ran; every loss is finite, the
              first equal in both runs and the others within rel 1e-2;
-             ``torch.profiler`` breaks down a fourth int8 step.
+             ``torch.profiler`` breaks down a fourth int8 step. The int8
+             run also advances simulated time (``ClusterTimeModel`` of one
+             node of one H100, ``core/hw.py``): each step's line adds its
+             simulated seconds and tok/s, labelled as the fabric model's;
+6. train_cluster - full-width internlm2-1.8b cut to 2 layers, the same
+             batch, int8 moments, as 3 simulated nodes of a ``TrainCluster``
+             on ``TRAIN_FABRICS["h100"]`` (heartbeats every 0.2 s, 1 s
+             timeout), uncompressed checkpoints every 2 steps under a
+             temporary directory (removed at the end), 4 steps: once
+             without failure, once with node2 silent from step 2. The
+             failure must be detected, the cluster resized and the
+             checkpoint of step 0 restored, so step 1 runs again; the
+             failure run's losses and every final param, int8 moment and
+             scale must be bit-equal to the uninterrupted run's, and each
+             run's launch counts (set to 0 just before it) must be 2 x
+             leaves x (numeric steps run + 1) quantizes and 2 x leaves x
+             steps run dequantizes. Prints each save's and restore's
+             seconds, the checkpoint's bytes and the simulated timeline.
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound (K1 and K3 once per timed length, K2 at the path's
 lengths and once per fill; K1's and K2's rows also carry the staged
-runs' launches, ``staged_launches``); the last line is
+runs' launches, ``staged_launches``, K4a's and K4b's the train_cluster
+failure run's, ``cluster_launches``); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -171,6 +192,14 @@ QUANT_PATH_N = 24 * 2048 * 2 * 8192
 # the train phase: train_4k's sequence, global batch 8 in 2 microbatches
 TRAIN = dict(arch="internlm2-1.8b", seq=4096, batch=8, microbatch=2, steps=3, lr=3e-4)
 LOSS_REL_TOL = 1e-2             # int8 against f32 moments, every step
+# the train_cluster phase: full-width internlm2 cut to 2 layers (a checkpoint
+# of f32 masters, int8 moments and their scales is ~3.1 GB), the train
+# phase's batch, 3 simulated nodes on TRAIN_FABRICS["h100"], checkpoints
+# every 2 steps; node2 goes silent at step 2, after the checkpoint of step 0
+# and the update of step 1, so step 1 is computed again from the checkpoint
+TRAIN_CLUSTER = dict(arch="internlm2-1.8b", layers=2, seq=4096, batch=8, microbatch=2,
+                     steps=4, lr=3e-4, nodes=3, every=2, keep=2, fail=("node2", 2),
+                     heartbeat_every=0.2, heartbeat_timeout=1.0)
 # K3 inside each mamba2 layer, kernel vs plain, relative to the largest
 # plain magnitude: y and state in f32, about 5x the largest readings on an
 # H100 (1.8e-5, 9.6e-6); the mixer output after bf16, two bf16 steps of
@@ -1112,6 +1141,7 @@ def phase_train(torch, dev):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.train import build
     from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.cluster import ClusterTimeModel
     from repro_torch.train.trainer import Trainer
 
     cfg = get_config(TRAIN["arch"])
@@ -1130,7 +1160,12 @@ def phase_train(torch, dev):
             fn.launches = 0
         t0 = time.perf_counter()
         params, opt, step_fn = build(cfg, run, dev)
-        tr = Trainer(cfg, run, shape, step_fn=step_fn, params=params, opt_state=opt)
+        # the int8 run also advances simulated time: one node of one H100
+        # (core/hw.py's constants) on train_fabric(1)
+        tm = (ClusterTimeModel.from_config(cfg, shape, nodes=1, devices_per_node=1)
+              if moments == "int8" else None)
+        tr = Trainer(cfg, run, shape, step_fn=step_fn, params=params, opt_state=opt,
+                     time_model=tm)
         del params, opt
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
@@ -1146,9 +1181,13 @@ def phase_train(torch, dev):
               f"{shape.global_batch} x seq {shape.seq_len} in {run.microbatch} microbatches, "
               f"remat {run.remat_policy}; set up in {setup:.2f} s")
         for h in hist:
+            sim = (f"; simulated (fabric model, H100 constants) {h['sim_seconds']:.6f} s = "
+                   f"{h['tokens_per_s']:.1f} tok/s" if "sim_seconds" in h else "")
             print(f"[train] {moments} step {h['step']}: loss {h['loss']:.6f} lr {h['lr']:.3g} "
                   f"grad_norm {h['grad_norm']:.4g} {h['seconds'] * 1e3:.1f} ms "
-                  f"({tokens / h['seconds']:.1f} tok/s)")
+                  f"({tokens / h['seconds']:.1f} tok/s host clock){sim}")
+        if tm is not None and not all("sim_seconds" in h for h in hist):
+            raise AssertionError("the int8 run's records carry no simulated seconds")
         steady = [h["seconds"] for h in hist[1:]]
         print(f"[train] {moments}: steps 1..{steps - 1} {np.mean(steady) * 1e3:.1f} ms/step = "
               f"{tokens / np.mean(steady):.1f} tok/s; peak memory {peak / 2 ** 30:.3f} GiB; "
@@ -1176,6 +1215,152 @@ def phase_train(torch, dev):
     if not max(rel) < LOSS_REL_TOL:
         raise AssertionError(f"int8 moments part from f32 moments: rel {rel}")
     return launches["int8"]
+
+
+def phase_train_cluster(torch, dev, spec=TRAIN_CLUSTER):
+    """Full-width internlm2-1.8b cut to ``spec["layers"]`` layers through the
+    port's ``TrainCluster`` on ``TRAIN_FABRICS["h100"]``: a run without
+    failure, then one where ``spec["fail"]`` goes silent. Real checkpoints
+    (uncompressed, every ``spec["every"]`` steps) under a temporary
+    directory; the failure must be detected, the cluster resized and the
+    newest checkpoint restored, and the failure run's per-step losses and
+    every final param and moment must equal the uninterrupted run's bit
+    for bit. Returns the failure run's launch counts."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.compression import Quantized
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.train import build
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.cluster import TRAIN_FABRICS, ClusterTimeModel, TrainCluster
+
+    class TimedCheckpoints(CheckpointManager):
+        """Host seconds of each save (staging to the host included) and
+        restore (the tensors back on the card included)."""
+        saves: list
+        restores: list
+
+        def save(self, step, tree, *, blocking=False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().save(step, tree, blocking=blocking)
+            self.saves.append((step, time.perf_counter() - t0))
+
+        def restore(self, like, step=None):
+            t0 = time.perf_counter()
+            out = super().restore(like, step)
+            torch.cuda.synchronize()
+            self.restores.append((out[1], time.perf_counter() - t0))
+            return out
+
+    cfg = dataclasses.replace(get_config(spec["arch"]), num_layers=spec["layers"])
+    shape = ShapeConfig("train_4k_b8", spec["seq"], spec["batch"], "train")
+    steps, every = spec["steps"], spec["every"]
+    run = RunConfig(learning_rate=spec["lr"], total_steps=steps,
+                    warmup_steps=max(2, steps // 10), microbatch=spec["microbatch"],
+                    moments_int8=True)
+    tm = ClusterTimeModel.from_config(cfg, shape, nodes=spec["nodes"])
+    pipeline = TokenPipeline(cfg, shape, seed=run.seed)
+    tokens = shape.global_batch * shape.seq_len
+    counters = launch_counters()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    runs = {}
+    try:
+        for label, fail in (("uninterrupted", None), ("failure", spec["fail"])):
+            for fn in counters.values():
+                fn.launches = 0
+            params, opt, step_fn = build(cfg, run, dev)
+            executed, walls = [], []
+
+            def counted_step(*a, step_fn=step_fn, executed=executed, walls=walls, **kw):
+                t0 = time.perf_counter()
+                out = step_fn(*a, **kw)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                executed.append(a[3])
+                return out
+
+            ckpt = TimedCheckpoints(str(Path(root) / label), every=every, keep=spec["keep"],
+                                    compress=False)
+            ckpt.saves, ckpt.restores = [], []
+            cluster = TrainCluster(
+                spec["nodes"], tm, fabric=TRAIN_FABRICS["h100"](spec["nodes"]),
+                step_fn=counted_step, params=params, opt_state=opt,
+                batch_at=lambda s: {k: torch.as_tensor(v, device=dev)
+                                    for k, v in pipeline.batch_at(s).items()},
+                ckpt=ckpt, heartbeat_every=spec["heartbeat_every"],
+                heartbeat_timeout=spec["heartbeat_timeout"], fail_at=fail)
+            del params, opt
+            t0 = time.perf_counter()
+            summary = cluster.run(steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in counters.items()}
+            runs[label] = cluster, summary, launches, executed
+            n_leaves = len(tree_leaves(cluster.params))
+            raw = [st["raw_bytes"] for st in ckpt.stats]
+            print(f"[train_cluster] {label}: {cfg.name} cut to {cfg.num_layers} layers "
+                  f"({cfg.param_count() / 1e9:.3f}B params, {n_leaves} leaves), batch "
+                  f"{shape.global_batch} x seq {shape.seq_len} in {run.microbatch} "
+                  f"microbatches, int8 moments, {spec['nodes']} nodes on "
+                  f"TRAIN_FABRICS['h100']; fail_at {fail}; host wall {wall:.2f} s")
+            for h in cluster.history:
+                print(f"[train_cluster] {label} step {h['step']}: loss {h['loss']!r} "
+                      f"simulated (fabric model, H100 constants) t {h['sim_t']:.6f} s, "
+                      f"{h['sim_seconds']:.6f} s = {h.get('tokens_per_s', 0.0):.1f} tok/s "
+                      f"on {h['nodes']} nodes")
+            print(f"[train_cluster] {label}: numeric steps run {executed}, host s each "
+                  f"{[round(w, 3) for w in walls]}; saves (step, host s) "
+                  f"{[(k, round(t, 3)) for k, t in ckpt.saves]}, restores "
+                  f"{[(k, round(t, 3)) for k, t in ckpt.restores]}; checkpoint "
+                  f"{raw[0] / 1e9 if raw else 0.0:.3f} GB raw each; simulated "
+                  f"{summary['sim_seconds']:.6f} s = {summary.get('tokens_per_s', 0.0):.1f} "
+                  f"tok/s; events {[(e['event'], round(e['t'], 6)) for e in summary['events']]}; "
+                  f"kernel launches {launches}")
+            expect = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
+                      "quantize": 2 * n_leaves * (len(executed) + 1),
+                      "dequantize": 2 * n_leaves * len(executed)}
+            if launches != expect:
+                raise AssertionError(f"train_cluster {label} launches {launches}, want "
+                                     f"{expect}: m and v of each leaf quantized at init and "
+                                     f"every step run, dequantized every step run")
+            if label == "uninterrupted":
+                shutil.rmtree(Path(root) / label, ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    (ref, s_ref, _, _), (fl, s_fl, launches, executed) = runs["uninterrupted"], runs["failure"]
+    kinds = [e["event"] for e in s_fl["events"]]
+    if kinds != ["node_silent", "failure_detected", "elastic_resize"] or s_ref["events"]:
+        raise AssertionError(f"train_cluster events {kinds}, without failure "
+                             f"{s_ref['events']}")
+    fail_step = spec["fail"][1]
+    resume = s_fl["events"][2]["resume_step"]
+    if resume != (fail_step - 1) // every * every + 1 or resume >= fail_step:
+        raise AssertionError(f"resumed at step {resume}: want the step after the last "
+                             f"checkpoint before step {fail_step}, with a step re-run")
+    losses = {h["step"]: h["loss"] for h in fl.history}
+    ref_losses = {h["step"]: h["loss"] for h in ref.history}
+    if losses != ref_losses or sorted(losses) != list(range(steps)):
+        raise AssertionError(f"losses after the failure {losses} differ from the "
+                             f"uninterrupted run's {ref_losses}")
+
+    def leaves(c):
+        return [x for leaf in tree_leaves((c.params, c.opt_state.m, c.opt_state.v))
+                for x in (leaf if isinstance(leaf, Quantized) else [leaf])]
+
+    pairs = list(zip(leaves(fl), leaves(ref)))
+    differ = sum(not torch.equal(a, b) for a, b in pairs)
+    if differ or fl.opt_state.step != ref.opt_state.step:
+        raise AssertionError(f"{differ} of {len(pairs)} final tensors differ from the "
+                             f"uninterrupted run's")
+    print(f"[train_cluster] failure run: events {kinds}, resumed at step {resume} "
+          f"(numeric steps {executed}); losses of all {steps} steps and all {len(pairs)} "
+          f"final tensors (f32 masters, int8 q and f32 scales of m and v) bit-equal to "
+          f"the uninterrupted run's; simulated {s_fl['sim_seconds']:.6f} s against "
+          f"{s_ref['sim_seconds']:.6f} s")
+    return launches
 
 
 def profile_train(torch, tr):
@@ -1293,6 +1478,12 @@ def main() -> int:
     # 5. train: internlm2 with int8 AdamW moments (K4a, K4b), then f32
     launches_train = phase_train(torch, dev)
     lap("train internlm2-1.8b")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. train_cluster: fail, detect, resize, restore and resume (K4a, K4b)
+    launches_cluster = phase_train_cluster(torch, dev)
+    lap("train_cluster internlm2-1.8b")
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -1322,11 +1513,13 @@ def main() -> int:
         dict(name="quantize", route="cuda",
              source="src/repro_torch/kernels/csrc/quant.cu",
              replaces="src/repro/kernels/quant/kernel.py:15",
-             launches=launches_train["quantize"], **rows["quantize"]),
+             launches=launches_train["quantize"],
+             cluster_launches=launches_cluster["quantize"], **rows["quantize"]),
         dict(name="dequantize", route="cuda",
              source="src/repro_torch/kernels/csrc/quant.cu",
              replaces="src/repro/kernels/quant/kernel.py:22",
-             launches=launches_train["dequantize"], **rows["dequantize"]),
+             launches=launches_train["dequantize"],
+             cluster_launches=launches_cluster["dequantize"], **rows["dequantize"]),
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")):

@@ -1,7 +1,11 @@
 """The port stands apart from the JAX package and from the CPU:
 
-- nothing under ``src/repro_torch`` nor ``chip_smoke.py`` imports jax or
-  the JAX package ``repro``, and importing the port loads neither;
+- nothing under ``src/repro_torch`` nor ``chip_smoke.py`` imports jax,
+  the JAX package ``repro`` or ``msgpack`` (absent on the card's
+  machine), and importing the port loads none of them;
+- the modules it copies from the JAX package keep the JAX modules'
+  statements (docstrings and the import prefix aside), and it holds none
+  of the JAX package's TPU constants;
 - its entry points default to ``cuda`` and raise without a card;
 - its kernel wrappers take the plain version only for CPU tensors and
   count no launch for them, and refuse inputs that want a gradient
@@ -47,7 +51,7 @@ def _imported_modules(path: Path):
 
 
 def _forbidden(mod: str) -> bool:
-    return mod.split(".")[0] in ("jax", "jaxlib", "repro")
+    return mod.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -59,20 +63,26 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_importing_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.serve.engine, "
-            "repro_torch.launch.serve, repro_torch.launch.train, repro_torch.bridge\n"
+            "repro_torch.launch.serve, repro_torch.launch.train, repro_torch.bridge, "
+            "repro_torch.ckpt, repro_torch.ft, repro_torch.offload, repro_torch.obs, "
+            "repro_torch.train.cluster, repro_torch.train.pods, repro_torch.core.roofline\n"
             "print(sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'msgpack')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120, check=True)
     assert out.stdout.strip() == "[]", out.stdout
 
 
-def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
+def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from repro_torch.launch.train import main as train_main
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_main(["--arch", "internlm2-1.8b", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main(["--arch", "internlm2-1.8b", "--reduced", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path / "ck")])
+    assert not (tmp_path / "ck").exists()
     for arch in ("internlm2-1.8b", "mamba2-2.7b"):
         cfg = get_config(arch).reduced()
         gen = torch.Generator()
@@ -84,6 +94,74 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TM.init_cache(cfg, 2, 16)
         assert ServeEngine(cfg, params, device="cpu").device.type == "cpu"
+
+
+#: the port's copies of jax-free JAX modules, held to them statement for
+#: statement (``tests/test_torch_fabric.py`` holds the fabric's, runtime's,
+#: tracer's and arrivals')
+COPIES = ["obs/metrics.py", "offload/device.py", "offload/program.py",
+          "offload/compression.py", "ckpt/replication.py", "ft/manager.py",
+          "ft/straggler.py", "train/pods.py"]
+#: modules the port holds only some functions of, each the JAX function's
+PARTIAL_COPIES = {
+    "core/compression.py": ["byte_codec", "default_codec", "offload_path_bandwidth",
+                            "compression_wins", "grad_sync_seconds"],
+    "core/roofline.py": ["model_flops_for"],
+    "ft/elastic.py": ["best_mesh_for"],
+    "train/cluster.py": ["_exact_split", "BucketSlice", "ClusterNode", "layer_group_weights",
+                         "ClusterTimeModel"],
+}
+
+
+def _strip(tree):
+    """The AST without docstrings, with ``repro_torch`` imports read as
+    ``repro``."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module:
+            node.module = node.module.replace("repro_torch", "repro", 1)
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body and isinstance(body[0], ast.Expr) and \
+                isinstance(body[0].value, ast.Constant) and isinstance(body[0].value.value, str):
+            node.body = body[1:] or [ast.Pass()]
+    return tree
+
+
+def _defs(rel, package):
+    tree = _strip(ast.parse((ROOT / "src" / package / rel).read_text()))
+    return {n.name: ast.dump(n) for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_is_the_jax_module(rel):
+    port = ast.dump(_strip(ast.parse((ROOT / "src" / "repro_torch" / rel).read_text())))
+    assert port == ast.dump(_strip(ast.parse((ROOT / "src" / "repro" / rel).read_text())))
+
+
+@pytest.mark.parametrize("rel", PARTIAL_COPIES)
+def test_partial_copy_keeps_the_jax_functions(rel):
+    port, jax_defs = _defs(rel, "repro_torch"), _defs(rel, "repro")
+    for name in PARTIAL_COPIES[rel]:
+        assert port[name] == jax_defs[name], name
+    if rel == "core/compression.py":
+        src = (ROOT / "src" / "repro_torch" / rel).read_text()
+        jsrc = (ROOT / "src" / "repro" / rel).read_text()
+        start = jsrc.index("BYTE_CODECS: Dict")
+        table = jsrc[start:jsrc.index("}", start) + 1]
+        assert table in src
+
+
+#: the JAX package's TPU v5e constants (``repro/core/hw.py``) that the
+#: ported fabric builders read
+TPU_CONSTANTS = (197e12, 819e9, 16 * 2 ** 30, 16e9, 3e-6, 6.25e9, 10e-6)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_holds_no_tpu_constant(path):
+    found = [node.value for node in ast.walk(ast.parse(path.read_text()))
+             if isinstance(node, ast.Constant) and type(node.value) is float
+             and node.value in TPU_CONSTANTS]
+    assert not found, f"{path.name} holds {found}"
 
 
 def test_wrappers_take_plain_version_on_cpu_and_count_nothing():

@@ -401,15 +401,28 @@ def test_trainer_losses_vs_jax_trainer(lm, tmp_path, moments):
     assert isinstance(TO.tree_leaves(tr.opt_state.m)[0], Quantized) == int8
 
 
-def test_trainer_refuses_what_is_not_ported(lm):
+def test_trainer_refuses_what_is_not_ported(lm, tmp_path):
+    """Checkpoints, simulated time and failure injection are ported: the
+    ``Trainer`` takes ``ckpt=``, ``runtime=``, ``time_model=`` and
+    ``fail_at=``. What is left refuses: the compressed inter-pod ring and
+    ``--multi-pod`` (multi-device)."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.core.runtime import FabricRuntime
+    from repro_torch.ft.manager import NodeFailure
+    from repro_torch.train.cluster import ClusterTimeModel, train_fabric
     cfg, _, _ = lm
     kw = dict(step_fn=None, params={}, opt_state=None)
-    for name in ("ckpt", "runtime", "time_model"):
-        with pytest.raises(NotImplementedError, match="A5"):
-            Trainer(cfg, RunConfig(), ShapeConfig("t", 8, 2, "train"), **kw, **{name: object()})
-    tr = Trainer(cfg, RunConfig(), ShapeConfig("t", 8, 2, "train"), **kw)
-    with pytest.raises(NotImplementedError, match="A5"):
+    tr = Trainer(cfg, RunConfig(), ShapeConfig("t", 8, 2, "train"), **kw,
+                 ckpt=CheckpointManager(str(tmp_path)), runtime=FabricRuntime(train_fabric(1)),
+                 time_model=ClusterTimeModel(compute_s=0.1, grad_bytes=0.0))
+    assert tr.start_step == 0 and tr.runtime is not None
+    with pytest.raises(NodeFailure):
         tr.run_steps(1, fail_at=0)
+    with pytest.raises(NotImplementedError, match="A9"):
+        TT.make_train_step(cfg, RunConfig(pod_sync="compressed"))
+    with pytest.raises(NotImplementedError, match="A6"):
+        launch_train.main(["--arch", "internlm2-1.8b", "--reduced", "--device", "cpu",
+                           "--multi-pod"])
 
 
 def test_opt_state_bridge(lm):
