@@ -23,7 +23,8 @@ nothing of JAX. Phases, each fatal on failure:
              of the largest magnitude of the f32 recurrence, the
              flash-decoding kernel also at its split edges (DEC_SPLIT_CASES:
              ragged per-row lengths at B = 4, max_len 1024, windows across
-             splits, softcap, hd 64 and 256, G = 8), int8 quantize /
+             splits, softcap, hd 64 and 256, G = 8; and the colocate
+             phase's B = 2, max_len 64 with an f32 cache), int8 quantize /
              dequantize bit-equal (q, scales and the dequantized values,
              f32 and bf16 in and out, n = 1, 255, 257, 1,000,003 and the
              path's 805,306,368), and the main paths' shapes (K1 at the
@@ -100,13 +101,38 @@ nothing of JAX. Phases, each fatal on failure:
              run's launch counts (set to 0 just before it) must be 2 x
              leaves x (numeric steps run + 1) quantizes and 2 x leaves x
              steps run dequantizes. Prints each save's and restore's
-             seconds, the checkpoint's bytes and the simulated timeline.
+             seconds, the checkpoint's bytes and the simulated timeline;
+7. colocate - serve + train colocation on one fabric and one budget
+             ledger (``repro_torch.tenancy``), as
+             ``repro_torch.launch.colocate`` builds it with its headline
+             flags (8 requests of 8 tokens, 4 new tokens each, 0.3
+             simulated s apart; 4 train steps; QoS 16:1, SLO 1.2 x solo
+             p99 TTFT, occupancy limit 0.4 on host:0): the serve tenant
+             full-width internlm2-1.8b (24 layers, bf16 weights from seed
+             0) in ``StagedServeEngine(slots=2, max_len=64, impl="auto")``
+             (K1, K2), the train tenant a ``TrainCluster(2)`` running
+             internlm2 cut to 2 layers on the train phase's batch with
+             int8 moments (K4a, K4b). Solo serve, solo train, unmanaged
+             and managed, each once with real compute and once with a
+             ``compute="sim"`` engine and a timing-only cluster: each
+             real run's simulated report must equal its sim twin's; the
+             colocated runs' tokens, losses and final params, int8
+             moments and scales must equal the solo runs', and the
+             managed run must throttle; each run's launch counts (set to
+             0 just before it) must be K1 24 x 8 per serving run, K2 24 x
+             its decode steps, K4a 2 x 11 x (numeric steps + 1) and K4b
+             2 x 11 x numeric steps per training run, K3 none; request
+             0's prefill logits, kernels against plain, within
+             MODEL_REL_TOL. Prints the launcher's lines (the fabric
+             model's simulated figures under ``core/hw.py``), each run's
+             host wall and the phase's peak device memory.
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound (K1 and K3 once per timed length, K2 at the path's
 lengths and once per fill; K1's and K2's rows also carry the staged
 runs' launches, ``staged_launches``, K4a's and K4b's the train_cluster
-failure run's, ``cluster_launches``); the last line is
+failure run's, ``cluster_launches``, and every row the colocate phase's
+four runs' together, ``colocate_launches``); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -147,13 +173,18 @@ DEC_CASES = [(2, 512, 4, 2, 64, None, None, 300), (1, 256, 8, 8, 128, 128, 50.0,
 # K2 at its split edges (B, S, Hq, Hkv, hd, window, softcap, per-row
 # lengths): ragged lengths at the serve path's decode shape, lengths on and
 # off the 64-row split edges, windows that start inside a split and cross
-# split edges, softcap, hd 64 and 256 with G = 8; each holds 1 and max_len
+# split edges, softcap, hd 64 and 256 with G = 8; each holds 1 and max_len.
+# The last two are the colocate phase's decode shape (2 slots, max_len 64):
+# an optional ninth item keeps the cache in that dtype while q takes the
+# loop's, so the bf16 pass runs the path's bf16 q against an f32 cache
 DEC_SPLIT_CASES = [(4, 1024, 16, 8, 128, None, None, (1, 1024, 300, 77)),
                    (4, 1024, 16, 8, 128, None, None, (64, 65, 1024, 1)),
                    (4, 1024, 16, 8, 128, 200, None, (1024, 130, 1, 700)),
                    (4, 1024, 16, 8, 128, 100, 30.0, (1, 1024, 257, 640)),
                    (4, 1024, 32, 4, 64, None, 50.0, (1, 1024, 129, 500)),
-                   (4, 1024, 16, 2, 256, 300, None, (1024, 1, 333, 64))]
+                   (4, 1024, 16, 2, 256, 300, None, (1024, 1, 333, 64)),
+                   (2, 64, 16, 8, 128, None, None, (9, 12), "float32"),
+                   (2, 64, 16, 8, 128, None, None, (1, 64), "float32")]
 # K2 timed at internlm2-1.8b's decode shape (4 slots, max_len 1024, 16 q / 8
 # kv heads of 128, f32 cache, bf16 q): the serve path's lengths, and
 # uniform fills (every row the same length)
@@ -205,6 +236,14 @@ TRAIN_CLUSTER = dict(arch="internlm2-1.8b", layers=2, seq=4096, batch=8, microba
 # H100 (1.8e-5, 9.6e-6); the mixer output after bf16, two bf16 steps of
 # its largest element (read 5.4e-3: one step, where y rounded the other way)
 SSM_LAYER_TOL = {"y": 1e-4, "state": 1e-4, "mixer": 2.0 ** -6}
+# the colocate phase: the colocation launcher's headline flags (README),
+# the other flags at their defaults; the serve tenant full-width
+# internlm2-1.8b (24 layers, bf16 weights from seed 0), the train tenant
+# internlm2 cut to 2 layers at the train phase's batch with int8 moments
+COLOCATE_ARGV = ["--arch", "internlm2-1.8b", "--requests", "8", "--train-steps", "4",
+                 "--serve-weight", "16", "--slo-factor", "1.2", "--occupancy-limit", "0.4"]
+COLOCATE_TRAIN = dict(layers=2, seq=4096, batch=8, microbatch=2, lr=3e-4)
+COLOCATE_RUNS = ("solo_serve", "solo_train", "unmanaged", "managed")
 
 
 def fail(msg: str) -> int:
@@ -333,15 +372,16 @@ def phase_kernels(torch, dev):
                                    softcap=cap),
                   vc, tol, f"{dtype} B={b} S={s} Hq={hq} Hkv={hkv} hd={d} window={win} "
                   f"softcap={cap} cache_len={clen}")
-        for b, s, hq, hkv, d, win, cap, lens in DEC_SPLIT_CASES:
-            q, kc, vc = randn((b, 1, hq, d), dtype), randn((b, s, hkv, d), dtype), randn((b, s, hkv, d), dtype)
+        for b, s, hq, hkv, d, win, cap, lens, *cache in DEC_SPLIT_CASES:
+            cdt = getattr(torch, cache[0]) if cache else dtype
+            q, kc, vc = randn((b, 1, hq, d), dtype), randn((b, s, hkv, d), cdt), randn((b, s, hkv, d), cdt)
             clen = torch.tensor(lens, dtype=torch.int32, device=dev)
             check("decode_attention",
                   decode_attention_kernel(q, kc, vc, clen, window=win, softcap=cap),
                   decode_attention(q, kc, vc, clen, window=win, softcap=cap),
                   decode_attention(q.float(), kc.float(), vc.float(), clen, window=win,
                                    softcap=cap),
-                  vc, tol, f"split edges {dtype} B={b} S={s} Hq={hq} Hkv={hkv} hd={d} "
+                  vc, tol, f"split edges {dtype} (cache {cdt}) B={b} S={s} Hq={hq} Hkv={hkv} hd={d} "
                   f"window={win} softcap={cap} cache_len={list(lens)}")
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)   # 256 MB > L2
@@ -1363,6 +1403,219 @@ def phase_train_cluster(torch, dev, spec=TRAIN_CLUSTER):
     return launches
 
 
+def _sim_view(rep):
+    """A run's simulated report without the train tenant's losses (the
+    only figure compute adds to it)."""
+    rep = rep if isinstance(rep, dict) else rep.to_dict()
+    if isinstance(rep.get("train"), dict):
+        rep = {**rep, "train": {k: v for k, v in rep["train"].items() if k != "loss"}}
+    return {k: v for k, v in rep.items() if k != "loss"}
+
+
+def phase_colocate(torch, dev, argv=COLOCATE_ARGV, spec=COLOCATE_TRAIN):
+    """Serve + train colocation on one fabric (``repro_torch.tenancy``), as
+    ``repro_torch.launch.colocate`` builds it from ``argv``: the serve
+    tenant (full-width internlm2-1.8b, ``StagedServeEngine(slots=2,
+    max_len=64, impl="auto")``: K1 and K2) and a 2-node ``TrainCluster``
+    running the numeric stream (internlm2 cut to ``spec["layers"]`` layers,
+    int8 moments: K4a and K4b). Four runs: solo serve, solo train,
+    unmanaged (equal shares) and managed (QoS weights, the SLO and the
+    occupancy limit); each again with a ``compute="sim"`` engine and a
+    timing-only cluster on the same fabric and requests. Fatal: a real
+    run's simulated report differs from its sim twin's; colocated tokens,
+    losses or final tensors differ from the solo runs'; the managed run
+    never throttles; a run's launch counts (set to 0 just before it)
+    differ from one K1 per layer and request, one K2 per layer and decode
+    step, 2 x leaves x (numeric steps + 1) K4a and 2 x leaves x numeric
+    steps K4b; request 0's prefill logits with kernels part from the plain
+    versions' by MODEL_REL_TOL. Returns the launch counts summed over the
+    four runs."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.compression import Quantized
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import colocate as L
+    from repro_torch.launch.train import build
+    from repro_torch.models import model as M
+    from repro_torch.models.params import compute_copy, init_params
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.tenancy import Colocation, QoSPolicy, solo_serve, solo_train
+
+    args = L.parser().parse_args(argv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg = get_config(args.arch)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    serve_params = compute_copy(init_params(cfg, gen, dev))   # the engines keep these
+    tcfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+    shape = ShapeConfig("train_4k_b8", spec["seq"], spec["batch"], "train")
+    steps = args.train_steps
+    run = RunConfig(learning_rate=spec["lr"], total_steps=steps,
+                    warmup_steps=max(2, steps // 10), microbatch=spec["microbatch"],
+                    moments_int8=True)
+    pipeline = TokenPipeline(tcfg, shape, seed=run.seed)
+    torch.cuda.synchronize()
+    print(f"[colocate] serve tenant {cfg.name}: {cfg.num_layers} layers, "
+          f"{cfg.param_count() / 1e9:.3f}B params, StagedServeEngine(slots={args.slots}, "
+          f"max_len=64, impl='auto'); train tenant {tcfg.num_layers} layers "
+          f"({tcfg.param_count() / 1e9:.3f}B params), batch {shape.global_batch} x seq "
+          f"{shape.seq_len} in {run.microbatch} microbatches, int8 moments, "
+          f"TrainCluster({args.nodes}); flags {' '.join(argv)}; set up in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    numeric = []                                   # per cluster: steps run, host s each
+
+    def cluster_kw():
+        params, opt, step_fn = build(tcfg, run, dev)
+        executed, walls = [], []
+        numeric.append((executed, walls))
+
+        def counted_step(*a, **kw):
+            t1 = time.perf_counter()
+            out = step_fn(*a, **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            executed.append(a[3])
+            return out
+        return dict(step_fn=counted_step, params=params, opt_state=opt,
+                    batch_at=lambda s: {k: torch.as_tensor(v, device=dev)
+                                        for k, v in pipeline.batch_at(s).items()})
+
+    pieces = {"real": L.build_pieces(args, device=dev, params=serve_params,
+                                     cluster_kw=cluster_kw),
+              "sim": L.build_pieces(args, compute="sim")}
+
+    def drive(name, mode, solo_p99):
+        """(report, requests, engine, cluster) of one run."""
+        fabric, make_engine, make_cluster, requests = pieces[mode]
+        built = {}
+
+        def rec_engine(rt):
+            built["engine"] = make_engine(rt)
+            return built["engine"]
+
+        def rec_cluster(rt):
+            built["cluster"] = make_cluster(rt)
+            return built["cluster"]
+        reqs = requests()
+        if name == "solo_serve":
+            return solo_serve(fabric(), rec_engine, reqs), reqs, built["engine"], None
+        if name == "solo_train":
+            return solo_train(fabric(), rec_cluster, steps), [], None, built["cluster"]
+        kw = ({} if name == "unmanaged" else
+              dict(qos=QoSPolicy.serve_train(args.serve_weight, args.train_weight),
+                   admission=L.managed_config(args, solo_p99)))
+        h = Colocation(fabric=fabric(), make_engine=rec_engine, make_cluster=rec_cluster, **kw)
+        return h.run(reqs, steps), reqs, h.engine, h.cluster
+
+    counters = launch_counters()
+    total = dict.fromkeys(counters, 0)
+    out, walls = {}, {}
+    for name in COLOCATE_RUNS:
+        p99 = {m: out[("solo_serve", m)][0]["p99_ttft"] if ("solo_serve", m) in out else None
+               for m in ("real", "sim")}
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        n_numeric = len(numeric)
+        t1 = time.perf_counter()
+        rep, reqs, eng, cluster = out[(name, "real")] = drive(name, "real", p99["real"])
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t1
+        launches = {k: fn.launches for k, fn in counters.items()}
+        sim = out[(name, "sim")] = drive(name, "sim", p99["sim"])
+        # 1. compute moves nothing on the simulated clock
+        if _sim_view(rep) != _sim_view(sim[0]):
+            raise AssertionError(f"colocate {name}: the simulated report differs from the "
+                                 f"compute='sim' twin's: {_sim_view(rep)} != "
+                                 f"{_sim_view(sim[0])}")
+        # 4. K1 per layer and request, K2 per layer and decode step, K4a at
+        #    init and each numeric step, K4b each numeric step
+        ran, step_walls = numeric[n_numeric] if len(numeric) > n_numeric else ([], [])
+        leaves = len(tree_leaves(cluster.params)) if cluster is not None else 0
+        decode_steps = eng.stats["decode_steps"] if eng is not None else 0
+        expect = {"flash_attention": cfg.num_layers * len(reqs),
+                  "decode_attention": cfg.num_layers * decode_steps, "ssd_scan": 0,
+                  "quantize": 2 * leaves * (len(ran) + 1) if cluster is not None else 0,
+                  "dequantize": 2 * leaves * len(ran)}
+        print(f"[colocate] {name}: host wall {walls[name]:.3f} s; "
+              f"{sum(len(r.out_tokens) for r in reqs)} tokens, {decode_steps} decode steps; "
+              f"numeric steps {ran}, host s each {[round(w, 3) for w in step_walls]}; "
+              f"launches {launches}; simulated report equals the compute='sim' twin's "
+              f"(sim_seconds, serve p50/p99/tokens/s, train summary without losses, "
+              f"occupancy, events, throttles)")
+        if launches != expect:
+            raise AssertionError(f"colocate {name}: launches {launches}, want {expect}")
+        for k in total:
+            total[k] += launches[k]
+
+    # the launcher's lines, from the real runs' reports
+    solo_s, solo_t = out[("solo_serve", "real")][0], out[("solo_train", "real")][0]
+    managed = out[("managed", "real")][0]
+    for line in ([L.solo_line(solo_s, solo_t)]
+                 + [L.run_line(n, out[(n, "real")][0], solo_s, solo_t)
+                    for n in ("unmanaged", "managed")] + L.managed_lines(managed)):
+        print(f"[colocate] simulated (fabric model, core/hw.py H100 constants) {line}")
+
+    # 2. and 3. colocation moves TTFT and step times, never a token, a
+    #    loss, a param, a moment or a scale
+    solo_tokens = [r.out_tokens for r in out[("solo_serve", "real")][1]]
+    solo_c = out[("solo_train", "real")][3]
+
+    def state(c):
+        return [x for leaf in tree_leaves((c.params, c.opt_state.m, c.opt_state.v))
+                for x in (leaf if isinstance(leaf, Quantized) else [leaf])]
+
+    solo_losses = {h["step"]: h["loss"] for h in solo_c.history}
+    if sorted(solo_losses) != list(range(steps)) or \
+            not all(math.isfinite(x) for x in solo_losses.values()):
+        raise AssertionError(f"colocate solo_train losses {solo_losses}")
+    for name in ("unmanaged", "managed"):
+        rep, reqs, _, c = out[(name, "real")]
+        tokens = [r.out_tokens for r in reqs]
+        if tokens != solo_tokens:
+            raise AssertionError(f"colocate {name}: serve tokens {tokens} differ from solo's "
+                                 f"{solo_tokens}")
+        losses = {h["step"]: h["loss"] for h in c.history}
+        pairs = list(zip(state(c), state(solo_c)))
+        differ = sum(not (a.dtype == b.dtype and torch.equal(a, b)) for a, b in pairs)
+        if losses != solo_losses or differ or c.opt_state.step != solo_c.opt_state.step:
+            raise AssertionError(f"colocate {name}: losses {losses} against solo's "
+                                 f"{solo_losses}, {differ} of {len(pairs)} final tensors differ")
+        print(f"[colocate] {name}: serve tokens equal solo's, token for token; losses "
+              f"{[losses[k] for k in sorted(losses)]} and all {len(pairs)} final tensors "
+              f"(f32 masters, int8 q and f32 scales of m and v) bit-equal to solo's; "
+              f"throttles {rep.throttles}")
+    if not managed.throttles > 0:
+        raise AssertionError("colocate managed: the admission controller never throttled")
+
+    # 5. request 0's prefill logits, kernels against plain versions
+    _, reqs, eng, _ = out[("solo_serve", "real")]
+    r0 = reqs[0]
+    bucket = eng._bucket_len(len(r0.prompt))
+    toks = np.zeros((1, bucket), np.int32)
+    toks[0, :len(r0.prompt)] = r0.prompt
+    logits = {impl: M.prefill(cfg, serve_params, torch.as_tensor(toks, device=dev),
+                              eng.max_len, impl=impl, cache_dtype=torch.float32,
+                              length=len(r0.prompt))[0][:, -1]
+              for impl in ("auto", "ref")}
+    ref = logits["ref"]
+    rel = float(((logits["auto"] - ref).abs().amax() / ref.abs().amax()).item())
+    same = int(logits["auto"].argmax()) == int(ref.argmax()) == r0.out_tokens[0]
+    print(f"[colocate] kernels vs plain, request 0 (prompt {len(r0.prompt)}, bucket "
+          f"{bucket}): rel err of the prefill logits {rel:.3g} (tol {MODEL_REL_TOL}); "
+          f"both argmaxes the served first token: {same}")
+    if not rel < MODEL_REL_TOL:
+        raise AssertionError(f"colocate: request 0's logits with kernels disagree: {rel}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[colocate] host wall per run (s): "
+          f"{', '.join(f'{k} {v:.3f}' for k, v in walls.items())}; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB; launches over the four runs {total}")
+    return total
+
+
 def profile_train(torch, tr):
     """Where a train step's time goes: one more step under
     ``torch.profiler``; host wall, device busy, the largest device items,
@@ -1484,6 +1737,12 @@ def main() -> int:
     # 6. train_cluster: fail, detect, resize, restore and resume (K4a, K4b)
     launches_cluster = phase_train_cluster(torch, dev)
     lap("train_cluster internlm2-1.8b")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. colocate: a serve tenant (K1, K2) beside a train tenant (K4a, K4b)
+    launches_coloc = phase_colocate(torch, dev)
+    lap("colocate internlm2-1.8b")
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -1491,6 +1750,7 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention/kernel.py:28",
              launches=launches["flash_attention"],
              staged_launches=staged_launches["flash_attention"],
+             colocate_launches=launches_coloc["flash_attention"],
              shape=f"B=1 S={s} Hq=16 Hkv=8 hd=128 bf16",
              **rows[("flash_attention", s)])
         for s in FA_PATH_LENS
@@ -1500,13 +1760,15 @@ def main() -> int:
              replaces="src/repro/kernels/decode_attention/kernel.py:26",
              launches=launches["decode_attention"],
              staged_launches=staged_launches["decode_attention"],
+             colocate_launches=launches_coloc["decode_attention"],
              **rows[("decode_attention", key)])
         for key in ("path",) + DEC_FILLS
     ] + [
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:28",
-             launches=launches_ssm["ssd_scan"], shape=f"B=1 S={s} H=80 P=64 N=128 bf16",
+             launches=launches_ssm["ssd_scan"], colocate_launches=launches_coloc["ssd_scan"],
+             shape=f"B=1 S={s} H=80 P=64 N=128 bf16",
              **rows[("ssd_scan", s)])
         for s in SSD_PATH_LENS
     ] + [
@@ -1514,12 +1776,14 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/quant.cu",
              replaces="src/repro/kernels/quant/kernel.py:15",
              launches=launches_train["quantize"],
-             cluster_launches=launches_cluster["quantize"], **rows["quantize"]),
+             cluster_launches=launches_cluster["quantize"],
+             colocate_launches=launches_coloc["quantize"], **rows["quantize"]),
         dict(name="dequantize", route="cuda",
              source="src/repro_torch/kernels/csrc/quant.cu",
              replaces="src/repro/kernels/quant/kernel.py:22",
              launches=launches_train["dequantize"],
-             cluster_launches=launches_cluster["dequantize"], **rows["dequantize"]),
+             cluster_launches=launches_cluster["dequantize"],
+             colocate_launches=launches_coloc["dequantize"], **rows["dequantize"]),
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")):

@@ -6,9 +6,7 @@
                  tenant Processes, plus the smartnic-idiom OffloadStats.
 ``compression``  checkpoint-compression offload: the real codecs as an
                  SoC tenant (bit-identical bytes, relocated cycles).
-
-Copies of the JAX package's modules of the same names, imports pointed
-at this package. The KV filter (``kvfilter``) is not ported yet.
+``kvfilter``     DrTM-KV-style get/put filtering on the SoC path.
 """
 from repro_torch.offload.device import (BF2_ARM, BF2_DCA, DEVICES, HOST_CPU,
                                         DeviceSpec, node_compute_paths)
@@ -16,6 +14,10 @@ from repro_torch.offload.program import OFFLOAD, OffloadProgram, OffloadStats
 from repro_torch.offload.compression import (CKPT_RATIO, CODEC_OPS_PER_BYTE,
                                              SoCCompressor, codec_ops,
                                              compression_program, host_compressor)
+from repro_torch.offload.kvfilter import (FilterPlan, FilterScan, HOST_FILTER,
+                                          KVFilter, SOC_FILTER,
+                                          kv_filter_alternatives,
+                                          plan_filter_placement)
 
 __all__ = [
     "BF2_ARM", "BF2_DCA", "DEVICES", "HOST_CPU", "DeviceSpec",
@@ -23,4 +25,6 @@ __all__ = [
     "OFFLOAD", "OffloadProgram", "OffloadStats",
     "CKPT_RATIO", "CODEC_OPS_PER_BYTE", "SoCCompressor", "codec_ops",
     "compression_program", "host_compressor",
+    "FilterPlan", "FilterScan", "HOST_FILTER", "KVFilter", "SOC_FILTER",
+    "kv_filter_alternatives", "plan_filter_placement",
 ]

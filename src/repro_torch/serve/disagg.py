@@ -1,10 +1,8 @@
-"""DrTM-KV on an off-path SmartNIC, the paper's §5.2 case study: the
-serving part of ``repro/serve/disagg.py``.
+"""DrTM-KV on an off-path SmartNIC — the paper's §5.2 case study.
 
-The performance plane is the calibrated path ``Fabric`` of the §5.2
-RDMA fabric (latencies and per-endpoint rate caps from the paper's
-Figure 3/17 measurements, as ops/s paths; every number is in
-``PathCosts``), with the five offload alternatives of Figure 16:
+A disaggregated key-value store with a cluster-chaining hash index
+(one READ usually locates the value) and five offload alternatives
+(paper Figure 16):
 
   A1  client READ index on host + READ value on host          (path ①x2)
   A2  client SEND to SoC; SoC walks index + DMA-reads value   (②+③*)
@@ -13,20 +11,22 @@ Figure 3/17 measurements, as ops/s paths; every number is in
   A5  client READ index on SoC + READ value from SoC cache    (②x2)
       (miss -> SoC returns the address; client falls back to A4)
 
-The serving engines use it through ``kv_fabric``,
-``kv_serve_time_model`` and ``plan_decode_placement``, which routes the
-alternatives through the fabric's ``MultipathRouter`` (the §4.1
-concurrency discount applied once, by the fabric). The code is the JAX
-package's, expression for expression, so the plans are the same.
-
-The numpy data plane (``DisaggKV``: hash index, value store, SoC cache)
-and the tenant-occupancy input of ``plan_decode_placement`` are not
-here yet: the occupancy ledger belongs to the tenancy modules.
+The data plane is real: numpy hash index (cluster chaining), value
+store, SoC-memory value cache with hot-key replication (Advice #1).
+The *performance* plane is the calibrated path Fabric (latencies and
+per-endpoint rate caps from the paper's Figure 3/17 measurements, as
+ops/s paths), because the reproduction runs without an RDMA fabric — every number
+used is listed in PathCosts and cross-checked against the paper in
+benchmarks/bench_kvserve.py. Throughput composition (e.g. A4+A5) goes
+through the fabric's MultipathRouter, with the §4.1 concurrency
+discount applied once by the fabric, not per call site.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from repro_torch.core.fabric import (Allocation, Alternative, Fabric,
                                      MultipathRouter, OPS_PER_S, Path, Use)
@@ -149,17 +149,16 @@ def plan_decode_placement(fabric: Fabric, *, hit_mass: float = 0.7,
     path once the SoC-side budgets are eaten.
 
     ``occupancy`` (the ``InterferenceReport.occupancy`` attribution,
-    ``path -> tenant -> fraction``, with ``tenant`` the caller's own
-    tenant) makes JAX's plan tenant-aware through the tenancy modules'
-    occupancy ledger; the port raises ``NotImplementedError`` for it
-    until those modules are ported. Ignored when an explicit ``ledger``
-    is given."""
+    ``path -> tenant -> fraction``) makes the plan *tenant-aware*
+    without a live ledger: the other tenants' measured shares become
+    external reservations, while ``tenant``'s own traffic is excluded —
+    a tenant should not flee a path it is itself the load on. Ignored
+    when an explicit ``ledger`` is given."""
     if ledger is None and occupancy is not None:
-        raise NotImplementedError(
-            "plan_decode_placement(occupancy=...) needs the tenancy "
-            "modules' occupancy_ledger, which the port does not have yet "
-            "(it comes with tenancy/colocation, after TrainCluster); pass "
-            "a live ledger= instead")
+        # lazy import: tenancy builds on serve, not the other way round
+        from repro_torch.tenancy.colocation import occupancy_ledger
+        ledger = occupancy_ledger(
+            fabric, occupancy, exclude=(tenant,) if tenant is not None else ())
     alts = kv_alternatives(costs if costs is not None else PathCosts(),
                            reads_per_index)
     router = MultipathRouter(fabric)
@@ -175,3 +174,121 @@ def plan_decode_placement(fabric: Fabric, *, hit_mass: float = 0.7,
         return PlacementPlan("soc_cache", total, base_rate, hit_mass, allocs)
     return PlacementPlan("host", base_rate, base_rate, hit_mass,
                          [Allocation(base_alt, base_rate, "solo")])
+
+
+@dataclasses.dataclass
+class KVStoreParams:
+    n_keys: int = 100_000
+    value_bytes: int = 64
+    key_bytes: int = 8
+    buckets_factor: float = 1.5
+    soc_cache_keys: int = 10_000     # SoC memory capacity (values)
+    hot_replicas: int = 3            # Advice #1: replicate hot entries
+    zipf_theta: float = 0.99
+
+
+class DisaggKV:
+    """Real index/value arrays + modeled path costs."""
+
+    def __init__(self, params: KVStoreParams, costs: PathCosts = PathCosts(),
+                 seed: int = 0):
+        self.p, self.c = params, costs
+        rng = np.random.default_rng(seed)
+        n = params.n_keys
+        self.nbuckets = int(n * params.buckets_factor)
+        # cluster-chaining hash index: bucket -> up to 4 (key, addr) slots
+        self.index_keys = np.full((self.nbuckets, 4), -1, np.int64)
+        self.index_addr = np.zeros((self.nbuckets, 4), np.int64)
+        self.values = rng.integers(0, 256, size=(n, params.value_bytes),
+                                   dtype=np.uint8)
+        self.overflow: Dict[int, int] = {}
+        for k in range(n):
+            b = hash((k, 0x9E3779B9)) % self.nbuckets
+            slot = np.argmax(self.index_keys[b] == -1)
+            if self.index_keys[b, slot] == -1:
+                self.index_keys[b, slot] = k
+                self.index_addr[b, slot] = k
+            else:
+                self.overflow[k] = k
+        # SoC value cache: hottest keys under zipf (key id == hotness rank)
+        self.soc_cached = set(range(min(params.soc_cache_keys, n)))
+
+    # ------------------------------------------------------------------
+    def _index_lookup(self, key: int) -> Tuple[int, int]:
+        """Returns (addr, n_reads needed)."""
+        b = hash((key, 0x9E3779B9)) % self.nbuckets
+        hit = np.where(self.index_keys[b] == key)[0]
+        if hit.size:
+            return int(self.index_addr[b, hit[0]]), 1
+        return self.overflow[key], 2
+
+    def get(self, key: int, alternative: str) -> Tuple[np.ndarray, float]:
+        """Executes the data plane, returns (value, modeled latency s)."""
+        c = self.c
+        addr, nidx = self._index_lookup(key)
+        val = self.values[addr]
+        if alternative == "A1":
+            lat = nidx * c.read_host_us + c.read_host_us
+        elif alternative == "A2":
+            lat = c.send_soc_us + c.dma_soc_host_us
+        elif alternative == "A3":
+            lat = c.send_soc_us + c.dma_soc_host_us   # index walk on-SoC memory
+        elif alternative == "A4":
+            lat = nidx * c.read_soc_us + c.read_host_us
+        elif alternative == "A5":
+            if key in self.soc_cached:
+                lat = nidx * c.read_soc_us + c.read_soc_us
+            else:  # miss: SoC returns address, client READs host (=A4 tail)
+                lat = nidx * c.read_soc_us + c.read_host_us
+        else:
+            raise ValueError(alternative)
+        return val, lat * 1e-6
+
+    # ------------------------------------------------------------------
+    # throughput model (paper Fig 17b/18): fabric + alternatives
+    # ------------------------------------------------------------------
+    def fabric(self) -> Fabric:
+        """The §5.2 RDMA fabric (see module-level kv_fabric)."""
+        return kv_fabric(self.c)
+
+    def alternatives(self, reads_per_index: float = 1.0) -> Dict[str, Alternative]:
+        return kv_alternatives(self.c, reads_per_index)
+
+    def cache_hit_mass(self) -> float:
+        """Zipf probability mass of the SoC-cached (hottest) keys — the
+        fraction of gets A5 can serve."""
+        ranks = np.arange(1, self.p.n_keys + 1, dtype=np.float64)
+        w = 1.0 / ranks ** self.p.zipf_theta
+        w /= w.sum()
+        return float(w[:len(self.soc_cached)].sum())
+
+    def combined_a4_a5(self) -> Tuple[float, List[Allocation]]:
+        """Paper's winning combination: cache hits go A5, misses A4; the
+        hit fraction is the zipf mass of the cached keys ("cache misses
+        are rare", §5.2). The MultipathRouter scales the fixed mix up to
+        the first saturated resource, with the §4.1 discount applied by
+        the fabric to resources touched by both members."""
+        m = self.cache_hit_mass()
+        alts = self.alternatives()
+        router = MultipathRouter(self.fabric())
+        return router.blend([(alts["A5"], m), (alts["A4"], 1.0 - m)])
+
+    def filtered_scan(self, keys, predicate, *, where: str = "soc-filter",
+                      ledger=None, stats=None):
+        """DrTM-KV get/put filtering (the offload tier's §5.2 workload):
+        run ``predicate`` over the candidate values on the SoC cores so
+        only matches cross the wire (``where="soc-filter"``), or read
+        everything over the host path and filter client-side
+        (``where="host-filter"``). Results are bit-identical either way;
+        see offload/kvfilter.KVFilter for the placement planner."""
+        from repro_torch.offload.kvfilter import KVFilter
+        return KVFilter(self, stats=stats).scan(keys, predicate,
+                                                where=where, ledger=ledger)
+
+    def zipf_keys(self, n: int, seed: int = 0) -> np.ndarray:
+        rng = np.random.default_rng(seed)
+        # standard YCSB zipfian over key ranks
+        ranks = np.arange(1, self.p.n_keys + 1, dtype=np.float64)
+        w = 1.0 / ranks ** self.p.zipf_theta
+        w /= w.sum()
+        return rng.choice(self.p.n_keys, size=n, p=w)

@@ -241,10 +241,27 @@ def placement_plans(m):
              [dataclasses.astuple(a) for a in p.allocations]) for p in plans]
 
 
+def occupancy_placement_plans(m):
+    """The ``occupancy=`` branch: other tenants' measured shares become
+    external reservations, the caller's own share is excluded, and a
+    share above the path's capacity is clamped (tests/test_scale.py:335)."""
+    fabric = m.disagg.kv_fabric()
+    crowded = {"soc_read": {"train": 0.95, "serve": 0.02}, "nowhere": {"train": 1.0}}
+    own = {"soc_read": {"serve": 0.95}}
+    over = {"soc_read": {"train": 0.8, "batch": 0.7}}
+    plans = [m.disagg.plan_decode_placement(fabric, occupancy=occ, tenant="serve")
+             for occ in (crowded, own, over)]
+    plans.append(m.disagg.plan_decode_placement(fabric, occupancy=crowded))
+    assert [p.location for p in plans] == ["host", "soc_cache", "host", "host"]
+    return [(p.location, p.rate, p.baseline_rate, p.hit_mass,
+             [dataclasses.astuple(a) for a in p.allocations]) for p in plans]
+
+
 SCENARIOS = [overlapping_transfers, staggered_rebalance, unstall_after_release,
              max_rate_water_fill, external_reservations, shared_group, replication,
              global_vs_incremental, span_timelines, rate_annotations,
-             tracer_on_vs_off, chrome_trace_json, placement_plans]
+             tracer_on_vs_off, chrome_trace_json, placement_plans,
+             occupancy_placement_plans]
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda f: f.__name__)
@@ -256,7 +273,10 @@ def test_port_equals_jax(scenario):
 
 ROOT = FsPath(__file__).resolve().parents[1]
 COPIES = ["core/fabric.py", "core/runtime.py", "obs/trace.py", "obs/export.py",
-          "scale/arrivals.py"]
+          "scale/arrivals.py", "serve/disagg.py", "tenancy/qos.py", "tenancy/admission.py",
+          "tenancy/colocation.py", "tenancy/__init__.py", "offload/kvfilter.py",
+          "scale/autoscale.py", "scale/fleet.py", "scale/__init__.py", "offload/__init__.py",
+          "launch/fleet.py"]
 
 
 def _body(path):
@@ -279,7 +299,3 @@ def test_copy_is_the_jax_module(rel):
     float sum would change the simulated times."""
     assert _body(ROOT / "src" / "repro_torch" / rel) == _body(ROOT / "src" / "repro" / rel)
 
-
-def test_occupancy_placement_waits_for_tenancy():
-    with pytest.raises(NotImplementedError, match="occupancy_ledger"):
-        t_disagg.plan_decode_placement(t_disagg.kv_fabric(), occupancy={"soc_read": {}})

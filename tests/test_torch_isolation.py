@@ -65,7 +65,9 @@ def test_importing_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.serve.engine, "
             "repro_torch.launch.serve, repro_torch.launch.train, repro_torch.bridge, "
             "repro_torch.ckpt, repro_torch.ft, repro_torch.offload, repro_torch.obs, "
-            "repro_torch.train.cluster, repro_torch.train.pods, repro_torch.core.roofline\n"
+            "repro_torch.train.cluster, repro_torch.train.pods, repro_torch.core.roofline, "
+            "repro_torch.tenancy, repro_torch.scale, repro_torch.offload.kvfilter, "
+            "repro_torch.serve.disagg, repro_torch.launch.colocate, repro_torch.launch.fleet\n"
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'msgpack')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
