@@ -23,8 +23,9 @@ nothing of JAX. Phases, each fatal on failure:
              of the largest magnitude of the f32 recurrence, the
              flash-decoding kernel also at its split edges (DEC_SPLIT_CASES:
              ragged per-row lengths at B = 4, max_len 1024, windows across
-             splits, softcap, hd 64 and 256, G = 8; and the colocate
-             phase's B = 2, max_len 64 with an f32 cache), int8 quantize /
+             splits, softcap, hd 64 and 256, G = 8; the colocate
+             phase's B = 2, max_len 64 with an f32 cache; G = 16, glm4-9b's
+             32 q over 2 kv heads, at hd 128 and 256), int8 quantize /
              dequantize bit-equal (q, scales and the dequantized values,
              f32 and bf16 in and out, n = 1, 255, 257, 1,000,003 and the
              path's 805,306,368), and the main paths' shapes (K1 at the
@@ -36,7 +37,10 @@ nothing of JAX. Phases, each fatal on failure:
              host time per call and each pass's device time; K3 at the
              serve pass's lengths 8 to 1024, beside the CUDA-core kernel
              and the wrapper it had on the same inputs, also spun, with
-             the host time per call and each launch's device time);
+             the host time per call and each launch's device time; K1 at
+             head dim 256, gemma2-9b's prefill shape with its window and
+             softcap at S = 512 and 4,608 and gemma-7b's at 512; K2 at
+             glm4-9b's decode shape, G = 16);
              kernel, plain version and the library
              yardstick where one PyTorch call computes the same function
              (``scaled_dot_product_attention``, ``torch.mul``, which the
@@ -125,14 +129,29 @@ nothing of JAX. Phases, each fatal on failure:
              0's prefill logits, kernels against plain, within
              MODEL_REL_TOL. Prints the launcher's lines (the fabric
              model's simulated figures under ``core/hw.py``), each run's
-             host wall and the phase's peak device memory.
+             host wall and the phase's peak device memory;
+8. zoo     - every other arch one card holds (``ZOO``: glm4-9b, gemma2-9b,
+             gemma-7b, granite-moe-1b-a400m, moonshot-v1-16b-a3b cut to
+             16 layers, internvl2-2b, musicgen-large), full width, random
+             weights from seed 0, one at a time: 4 greedy requests (numpy
+             seed 0 lengths in [8, 512], 8 new tokens) through
+             ``ServeEngine(slots=4, max_len=1024)``, checked for finite
+             logits, then timed with the launch counts set to 0 (K1 once
+             per attention layer and request, K2 once per attention layer
+             and decode step); request 0 kernels vs plain (MoE: routing
+             pinned to the plain run's, the unpinned errors and routing
+             flips printed; internvl2-2b also after 256 frontend rows);
+             each MoE's dropped fraction (0 at lossless capacity) and
+             expert load; gemma2-9b's 4,608-token prompt past its
+             4096-token window, kernels vs plain; peak memory per arch.
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound (K1 and K3 once per timed length, K2 at the path's
 lengths and once per fill; K1's and K2's rows also carry the staged
 runs' launches, ``staged_launches``, K4a's and K4b's the train_cluster
-failure run's, ``cluster_launches``, and every row the colocate phase's
-four runs' together, ``colocate_launches``); the last line is
+failure run's, ``cluster_launches``, every row the colocate phase's
+four runs' together, ``colocate_launches``, and the zoo phase's timed
+passes', ``zoo_launches``); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -174,9 +193,11 @@ DEC_CASES = [(2, 512, 4, 2, 64, None, None, 300), (1, 256, 8, 8, 128, 128, 50.0,
 # lengths): ragged lengths at the serve path's decode shape, lengths on and
 # off the 64-row split edges, windows that start inside a split and cross
 # split edges, softcap, hd 64 and 256 with G = 8; each holds 1 and max_len.
-# The last two are the colocate phase's decode shape (2 slots, max_len 64):
-# an optional ninth item keeps the cache in that dtype while q takes the
-# loop's, so the bf16 pass runs the path's bf16 q against an f32 cache
+# Then the colocate phase's decode shape (2 slots, max_len 64): an optional
+# ninth item keeps the cache in that dtype while q takes the loop's, so the
+# bf16 pass runs the path's bf16 q against an f32 cache. The last four run
+# G = 16 (glm4-9b: 32 q heads over 2 kv heads) at split edges, with a
+# window and softcap, at hd 256, and at the zoo path's dtypes
 DEC_SPLIT_CASES = [(4, 1024, 16, 8, 128, None, None, (1, 1024, 300, 77)),
                    (4, 1024, 16, 8, 128, None, None, (64, 65, 1024, 1)),
                    (4, 1024, 16, 8, 128, 200, None, (1024, 130, 1, 700)),
@@ -184,12 +205,24 @@ DEC_SPLIT_CASES = [(4, 1024, 16, 8, 128, None, None, (1, 1024, 300, 77)),
                    (4, 1024, 32, 4, 64, None, 50.0, (1, 1024, 129, 500)),
                    (4, 1024, 16, 2, 256, 300, None, (1024, 1, 333, 64)),
                    (2, 64, 16, 8, 128, None, None, (9, 12), "float32"),
-                   (2, 64, 16, 8, 128, None, None, (1, 64), "float32")]
+                   (2, 64, 16, 8, 128, None, None, (1, 64), "float32"),
+                   (4, 1024, 32, 2, 128, None, None, (1, 1024, 300, 77)),
+                   (4, 1024, 32, 2, 128, 200, 30.0, (64, 65, 1024, 1)),
+                   (4, 1024, 32, 2, 256, 300, None, (1024, 1, 333, 64)),
+                   (4, 1024, 32, 2, 128, None, None, (9, 1024, 130, 1), "float32")]
 # K2 timed at internlm2-1.8b's decode shape (4 slots, max_len 1024, 16 q / 8
 # kv heads of 128, f32 cache, bf16 q): the serve path's lengths, and
-# uniform fills (every row the same length)
+# uniform fills (every row the same length); and at glm4-9b's (32 q / 2 kv
+# heads, G = 16) at the serve path's lengths
 DEC_PATH_LENS = (1, 1024, 300, 77)
 DEC_FILLS = (1, 64, 256, 512, 1024)
+# K1 timed at head dim 256 (its CUDA-core kernel in bf16): gemma2-9b's
+# prefill shape (B=1, 16 q / 8 kv heads, the local layers' 4096-token
+# window and softcap 50) at a bucket and at the zoo phase's long prompt,
+# and gemma-7b's (16 q = 16 kv heads, causal, beside SDPA):
+# (arch, Hq, Hkv, window, softcap, lengths)
+ZOO_FA_CASES = [("gemma2-9b", 16, 8, 4096, 50.0, (512, 4608)),
+                ("gemma-7b", 16, 16, None, None, (512,))]
 # tests/test_kernels.py: SSD_CASES (B, S, H, P, N, chunk, head tile)
 SSD_CASES = [(2, 64, 4, 8, 16, 16, 2), (1, 128, 6, 16, 8, 32, 3),
              (2, 256, 8, 16, 32, 64, 8)]
@@ -244,7 +277,16 @@ COLOCATE_ARGV = ["--arch", "internlm2-1.8b", "--requests", "8", "--train-steps",
                  "--serve-weight", "16", "--slo-factor", "1.2", "--occupancy-limit", "0.4"]
 COLOCATE_TRAIN = dict(layers=2, seq=4096, batch=8, microbatch=2, lr=3e-4)
 COLOCATE_RUNS = ("solo_serve", "solo_train", "unmanaged", "managed")
-
+# the zoo phase: the archs one card holds, at full width, in the JAX
+# registry's order; moonshot-v1-16b-a3b cut from 48 to 16 layers (its 28.06B
+# params as f32 masters plus the bf16 copy would be 168 GB; at 16 layers
+# ~59 GB, its stacked w_in alone 23.6 GB in f32). (arch, layers or None)
+ZOO = [("glm4-9b", None), ("gemma2-9b", None), ("gemma-7b", None),
+       ("granite-moe-1b-a400m", None), ("moonshot-v1-16b-a3b", 16),
+       ("internvl2-2b", None), ("musicgen-large", None)]
+ZOO_SERVE = dict(slots=4, max_len=1024, requests=4, max_new=8, low=8, high=512)
+# gemma2-9b's long prompt: past its local layers' 4096-token window
+ZOO_LONG = dict(arch="gemma2-9b", tokens=4608, max_len=4672, steps=3)
 
 def fail(msg: str) -> int:
     print(f"[chip_smoke] FAILED: {msg}", file=sys.stderr)
@@ -419,7 +461,42 @@ def phase_kernels(torch, dev):
     torch.cuda.synchronize()
     print(f"[kernels] flash_attention wrapper: {host_us:.2f} us of host time per call "
           f"(1000 calls at S=64, no sync between)")
+    # K1 at head dim 256, the zoo path's gemma shapes (ZOO_FA_CASES)
+    for arch, hq, hkv, win, cap, lens in ZOO_FA_CASES:
+        for s in lens:
+            q = randn((1, s, hq, 256), torch.bfloat16)
+            k, v = randn((1, s, hkv, 256), torch.bfloat16), randn((1, s, hkv, 256), torch.bfloat16)
+            shape = f"B=1 S={s} Hq={hq} Hkv={hkv} hd=256 bf16 window={win} softcap={cap}"
+            e = check("flash_attention", flash_attention(q, k, v, window=win, softcap=cap),
+                      attention_ref(q, k, v, window=win, softcap=cap),
+                      attention_ref(q.float(), k.float(), v.float(), window=win, softcap=cap),
+                      v, TOL["bfloat16"], f"{arch} path {shape}")
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (
+                q, k.repeat_interleave(hq // hkv, 2), v.repeat_interleave(hq // hkv, 2)))
+            ms = cuda_ms(lambda: flash_attention(q, k, v, window=win, softcap=cap), flush=flush)
+            plain = cuda_ms(lambda: attention_ref(q, k, v, window=win, softcap=cap), flush=flush)
+            pos = torch.arange(s, device=dev)
+            mask = None if win is None else \
+                (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
+            # SDPA has no softcap: with one it computes another function and
+            # is timed as the yardstick only, under its own key
+            sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=mask is None, attn_mask=mask), flush=flush)
+            pairs = sum(min(i + 1, win or s) for i in range(s))   # visible (q, k) pairs
+            ops = 4.0 * hq * 256 * pairs
+            b_ms, b_by = bound(nbytes(q, k, v, q), ops, BF16_FLOPS)
+            f32_ms = bound(nbytes(q, k, v, q), ops, F32_FLOPS)[0]
+            print(f"[kernels] flash_attention {arch} path {shape}: err {e:.3g} kernel "
+                  f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa{' without the softcap' if cap else ''} "
+                  f"{sdpa:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {f32_ms:.4f} ms at the CUDA "
+                  f"cores' {F32_FLOPS / 1e12:.0f} TFLOP/s)")
+            rows[("flash_attention", arch, s)] = dict(
+                max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None if cap else sdpa, cuda_core_bound_ms=f32_ms, shape=shape,
+                **({"sdpa_without_softcap_ms": sdpa} if cap else {}))
     rows.update(check_decode(torch, dev, randn, err, flush))
+    rows.update(check_decode(torch, dev, randn, err, flush, hq=32, hkv=2, fills=(),
+                             label="glm4-9b"))
     rows.update(check_ssd(torch, dev, gen, randn, err, flush))
     rows.update(check_quant(torch, randn, flush))
     del flush
@@ -440,27 +517,28 @@ def one_split_decode(q, k_cache, v_cache, cache_len):
     return launch(q, k_cache, v_cache, clen, k_cache.shape[1], None, None)
 
 
-def check_decode(torch, dev, randn, err, flush):
-    """K2 at internlm2-1.8b's decode shape, at the serve path's lengths
-    (DEC_PATH_LENS) and at each uniform fill of DEC_FILLS: against the
-    plain version, and timed beside its one-split schedule
+def check_decode(torch, dev, randn, err, flush, hq=16, hkv=8, fills=DEC_FILLS, label=""):
+    """K2 at a decode shape of the serve path (4 slots, max_len 1024, hd
+    128; internlm2-1.8b's 16 q / 8 kv heads, or ``label``'s), at the serve
+    path's lengths (DEC_PATH_LENS) and at each uniform fill of ``fills``:
+    against the plain version, and timed beside its one-split schedule
     (``one_split_decode``), the plain version and SDPA: ``ms`` as for every
     kernel, ``device_ms`` with the card spun before each start event (no
     gap the host leaves is timed), both schedules in turns over seven
     rounds; the host time per call and each pass's device time. One row
-    per setting."""
+    per setting, keyed ``label path`` for another arch's shape."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import decode_attention_kernel, split_rows
     from repro_torch.kernels.decode_attention.ref import decode_attention
 
-    b, s, hq, hkv, d = 4, 1024, 16, 8, 128
+    b, s, d = 4, 1024, 128
     rows_per_split = split_rows(b, s, hkv, d)
     q = randn((b, 1, hq, d), torch.bfloat16)
     kc, vc = randn((b, s, hkv, d), torch.float32), randn((b, s, hkv, d), torch.float32)
     qf = q.float().transpose(1, 2).contiguous()                       # exact upcast
     ke, ve = (x.repeat_interleave(hq // hkv, 2).transpose(1, 2).contiguous() for x in (kc, vc))
     rows = {}
-    for key, lens in [("path", DEC_PATH_LENS)] + [(n, (n,) * b) for n in DEC_FILLS]:
+    for key, lens in [(f"{label} path".strip(), DEC_PATH_LENS)] + [(n, (n,) * b) for n in fills]:
         lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         ref = decode_attention(q, kc, vc, lens)
         e = err(decode_attention_kernel(q, kc, vc, lens), ref)
@@ -490,8 +568,9 @@ def check_decode(torch, dev, randn, err, flush):
         kv_bytes = 2 * rows_read * hkv * d * 4
         ops = 4.0 * rows_read * hq * d
         b_ms, b_by = bound(nbytes(q, lens) + kv_bytes + b * hq * d * 4, ops, F32_FLOPS)
-        print(f"[kernels] decode_attention {'path' if key == 'path' else 'fill'} B={b} "
-              f"max_len={s} lens={lens.tolist()} f32 cache: err {e:.3g} (one split "
+        print(f"[kernels] decode_attention {key if isinstance(key, str) else 'fill'} B={b} "
+              f"max_len={s} lens={lens.tolist()}{f' Hq={hq} Hkv={hkv}' if label else ''} "
+              f"f32 cache: err {e:.3g} (one split "
               f"{e_one:.3g}) kernel {ms:.4f} ms ({dev_ms:.4f} spun; split_rows "
               f"{rows_per_split}; passes {passes} us), one split {one:.4f} ms ({one_dev:.4f} "
               f"spun), host {host:.2f} against {one_host:.2f} us a call, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
@@ -783,7 +862,6 @@ def phase_serve(torch, dev, arch, path_kernels):
     engine's bf16 weights, the prompts, the timed pass's tokens and its
     host figures."""
     from repro_torch.configs import get_config
-    from repro_torch.models import model as M
     from repro_torch.models.params import init_params, layer_period, num_groups, slot_kind
     from repro_torch.serve.engine import Request, ServeEngine
 
@@ -870,25 +948,9 @@ def phase_serve(torch, dev, arch, path_kernels):
     # kernels vs plain versions on the whole model: the first request's
     # prefill logits and three teacher-forced decode steps, same weights
     r0 = reqs[0]
-    bucket = eng._bucket_len(len(r0.prompt))
-    toks_in = np.zeros((1, bucket), np.int32)
-    toks_in[0, :len(r0.prompt)] = r0.prompt
-    logits = {}
-    for impl in ("auto", "ref"):
-        out, cache, npos = M.prefill(cfg, eng.params, torch.as_tensor(toks_in, device=dev),
-                                     eng.max_len, impl=impl, cache_dtype=torch.float32,
-                                     length=len(r0.prompt))
-        steps = [out[:, -1]]
-        for i in range(3):
-            tok = torch.tensor([[r0.out_tokens[i]]], device=dev)
-            pos = torch.tensor([npos + i], dtype=torch.int32, device=dev)
-            out, cache = M.decode_step(cfg, eng.params, tok, cache, pos, impl=impl)
-            steps.append(out[:, 0])
-        logits[impl] = torch.cat(steps)                  # (4, V)
-        del cache
-    ref = logits["ref"]
-    rel = ((logits["auto"] - ref).abs().amax(-1) / ref.abs().amax(-1)).tolist()
-    same_top = (logits["auto"].argmax(-1) == ref.argmax(-1)).tolist()
+    rel, same_top, _ = kernels_vs_plain(torch, dev, cfg, eng.params, r0.prompt,
+                                        r0.out_tokens[:3], eng.max_len,
+                                        bucket=eng._bucket_len(len(r0.prompt)))
     print(f"[serve] {arch}: kernels vs plain, request 0 (prompt {len(r0.prompt)}): rel "
           f"err of prefill + 3 decode logits {[f'{x:.3g}' for x in rel]} "
           f"(tol {MODEL_REL_TOL}), same argmax {same_top}")
@@ -904,6 +966,102 @@ def phase_serve(torch, dev, arch, path_kernels):
                 decode_ms=float(np.median(d)))
     profile_serve(torch, eng, cfg, rng)
     return launches, sync
+
+
+class PinnedRouting:
+    """The MoE router's top-k choices of one run, recorded and then
+    compared with or replayed in another run of the same calls
+    (``repro_torch.models.moe.router_topk`` wrapped while the context is
+    open). ``mode``: "record" keeps each call's expert indices; "compare"
+    counts the routed tokens whose top-k set differs from the record's;
+    "replay" routes every token to the recorded experts, its weights
+    renormalized from its own router probabilities over them."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+        self.torch, self.moe, self.router_topk = torch, moe, moe.router_topk
+        self.calls, self.mode, self.at, self.flips, self.routed = [], None, 0, 0, 0
+
+    def __enter__(self):
+        self.moe.router_topk = self._router
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.router_topk = self.router_topk
+
+    def start(self, mode):
+        self.mode, self.at = mode, 0
+
+    def _router(self, x2d, w_router, k):
+        weights, idx, probs = self.router_topk(x2d, w_router, k)
+        if self.mode == "record":
+            self.calls.append(idx)
+            return weights, idx, probs
+        ref = self.calls[self.at]
+        self.at += 1
+        if self.mode == "compare":
+            self.routed += idx.shape[0]
+            self.flips += int((idx.sort(-1).values != ref.sort(-1).values).any(-1).sum())
+            return weights, idx, probs
+        kept = probs.gather(1, ref)
+        return kept / self.torch.clamp(kept.sum(-1, keepdim=True), min=1e-9), ref, probs
+
+
+def kernels_vs_plain(torch, dev, cfg, params, prompt, forced, max_len, *, bucket=None,
+                     frontend=None):
+    """Kernels against plain versions on the whole model, same weights:
+    the prefill logits of ``prompt`` (right-padded to ``bucket`` with
+    ``length=``, or after the ``frontend`` embeddings (F, D)) and one
+    teacher-forced decode step for each token of ``forced`` (an int is
+    fed to every codebook, as the engine feeds a prefill's token). Returns
+    the relative error of each step's logits (largest difference over the
+    plain path's largest magnitude), whether each step's argmax agrees
+    (every codebook's), and for an MoE config what its router did: a
+    router picks each token's top-k experts, a discrete choice that a
+    bf16 step in its input flips where two experts' probabilities nearly
+    tie, and a flipped token's FFN output changes by its whole size. So
+    for MoE the errors returned are the kernels' with every token routed
+    to the plain run's experts (``PinnedRouting``), and the dict holds
+    the unpinned errors and the number of routed tokens (of the prefill,
+    pad included, and each decode step) whose top-k set differs."""
+    from repro_torch.models import model as M
+
+    cb = cfg.num_codebooks
+    toks = np.asarray(prompt)
+    n = toks.shape[0]
+    if bucket and bucket > n:
+        toks = np.concatenate([toks, np.zeros((bucket - n,) + toks.shape[1:], toks.dtype)])
+    toks = torch.as_tensor(toks, device=dev)[None]
+    fe = None if frontend is None else torch.as_tensor(frontend, device=dev)[None]
+
+    def run(impl):
+        out, cache, npos = M.prefill(cfg, params, toks, max_len, frontend_embeds=fe, impl=impl,
+                                     cache_dtype=torch.float32,
+                                     length=n if fe is None else None)
+        steps = [out[:, -1]]
+        for i, t in enumerate(forced):
+            shape = (1, 1, cb) if cb > 1 else (1, 1)
+            tok = torch.as_tensor(np.array(np.broadcast_to(t, shape[2:])).reshape(shape),
+                                  device=dev)
+            pos = torch.tensor([npos + i], dtype=torch.int32, device=dev)
+            out, cache = M.decode_step(cfg, params, tok, cache, pos, impl=impl)
+            steps.append(out[:, 0])
+        return torch.cat(steps).view(len(steps), -1, out.shape[-1])   # (steps, C, V)
+
+    def rel(auto, ref):
+        return ((auto - ref).abs().amax((1, 2)) / ref.abs().amax((1, 2))).tolist()
+
+    with PinnedRouting(torch) as routing:
+        routing.start("record")
+        ref = run("ref")
+        routing.start("compare")
+        auto = run("auto")
+        routing.start("replay")
+        pinned = run("auto") if cfg.num_experts else auto
+    same_top = (pinned.argmax(-1) == ref.argmax(-1)).all(-1).tolist()
+    moe = (dict(unpinned=rel(auto, ref), flips=routing.flips, routed=routing.routed)
+           if cfg.num_experts else None)
+    return rel(pinned, ref), same_top, moe
 
 
 def check_ssm_layers(torch, dev, cfg, params, prompt):
@@ -936,7 +1094,7 @@ def check_ssm_layers(torch, dev, cfg, params, prompt):
         mix = [M._ssm_mixer(cfg, p["ssm"], hn, impl=impl) for impl in ("auto", "ref")]
         for key, e in (("y", rel(y, yr)), ("state", rel(hf, hr)), ("mixer", rel(*mix))):
             worst[key] = max(worst[key], e)
-        x = M.apply_layer(cfg, slot, p, x, positions=positions, impl="ref")
+        x, _ = M.apply_layer(cfg, slot, p, x, positions=positions, impl="ref")
     print(f"[serve] {cfg.name}: K3 in each of {cfg.num_layers} layers, prompt "
           f"{len(prompt)}, kernel vs plain on the layer's inputs, largest rel err: " +
           ", ".join(f"{k} {v:.3g} (tol {SSM_LAYER_TOL[k]})" for k, v in worst.items()))
@@ -1616,6 +1774,198 @@ def phase_colocate(torch, dev, argv=COLOCATE_ARGV, spec=COLOCATE_TRAIN):
     return total
 
 
+def moe_prefill_metrics(torch, dev, cfg, params, prompt):
+    """Every MoE layer's ``MoEMetrics`` in one prefill of ``prompt`` with
+    the kernels (lossless capacity, as a prefill dispatches): the model's
+    ``moe_ffn`` is wrapped for the call to record them."""
+    from repro_torch.models import model as M
+
+    seen, moe_ffn = [], M.moe_ffn
+
+    def recording(*args, **kw):
+        y, metrics = moe_ffn(*args, **kw)
+        seen.append(metrics)
+        return y, metrics
+    M.moe_ffn = recording
+    try:
+        M.prefill(cfg, params, torch.as_tensor(prompt, device=dev)[None], len(prompt),
+                  cache_dtype=torch.float32)
+    finally:
+        M.moe_ffn = moe_ffn
+    return seen
+
+
+def zoo_long_prompt(torch, dev, cfg, params, spec=ZOO_LONG):
+    """gemma2-9b past its local layers' window: one prompt of
+    ``spec["tokens"]`` tokens (numpy seed 0) through ``M.prefill`` and
+    ``spec["steps"]`` teacher-forced ``decode_step``s in a cache of
+    ``spec["max_len"]`` rows, kernels against plain versions (K1's
+    window masks keys 4096 back in the prefill, K2's in each decode)."""
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, spec["tokens"]).astype(np.int32)
+    forced = rng.integers(0, cfg.vocab_size, spec["steps"]).tolist()
+    counters = launch_counters()
+    before = {k: counters[k].launches for k in ("flash_attention", "decode_attention")}
+    t0 = time.perf_counter()
+    rel, same, _ = kernels_vs_plain(torch, dev, cfg, params, prompt, forced, spec["max_len"])
+    ran = {k: counters[k].launches - n for k, n in before.items()}
+    print(f"[zoo] {cfg.name}: long prompt of {spec['tokens']} tokens (window "
+          f"{cfg.window_size} on the local layers), max_len {spec['max_len']}, kernels vs "
+          f"plain: rel err of prefill + {spec['steps']} decode logits "
+          f"{[f'{x:.3g}' for x in rel]} (tol {MODEL_REL_TOL}), same argmax {same}; "
+          f"kernel launches {ran}; {time.perf_counter() - t0:.1f} s")
+    if not max(rel) < MODEL_REL_TOL:
+        raise AssertionError(f"{cfg.name}: the long prompt's logits with kernels disagree: {rel}")
+
+
+def phase_zoo(torch, dev):
+    """The archs of the registry that one card holds (``ZOO``), each at
+    full width (moonshot-v1-16b-a3b cut to 16 of its 48 layers: 28.06B
+    params would be 168 GB as f32 masters plus the bf16 copy), random
+    weights from seed 0, freed before the next. Each serves
+    ``ZOO_SERVE["requests"]`` greedy requests (prompt lengths from numpy
+    seed 0 in [8, 512], tiled over musicgen's codebooks as the JAX
+    launcher tiles them, 8 new tokens each) through ``ServeEngine(slots=4,
+    max_len=1024)`` with an f32 cache, once checking that every logit row
+    is finite, then again timed on the host clock. Fatal: the timed
+    pass's launch counts (set to 0 just before it) are not one K1 per
+    attention layer and request and one K2 per attention layer and
+    decode step; request 0's prefill logits and three teacher-forced
+    decode steps, kernels against plain, part by MODEL_REL_TOL (for
+    internvl2-2b also after 256 frontend rows, numpy seed 0 x 0.02,
+    through ``M.prefill``; the engine, as JAX's, passes none; for the MoE
+    archs with every token routed to the plain run's experts, the
+    unpinned errors and the routing flips printed beside them:
+    ``kernels_vs_plain``); an MoE prefill drops an assignment (lossless
+    capacity); gemma2-9b's long prompt (``zoo_long_prompt``) disagrees.
+    Prints each arch's tokens/s, decode ms, peak device memory, seconds,
+    and each MoE's dropped fraction and expert load. Returns the launch
+    counts summed over the timed passes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params, layer_period, num_groups, slot_kind
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    class Engine(_Probe, ServeEngine):
+        pass
+
+    spec = ZOO_SERVE
+    counters = launch_counters()
+    total = dict.fromkeys(counters, 0)
+    for arch, layers in ZOO:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        # the engine keeps a bf16 copy; the f32 masters go when it is made
+        eng = Engine(cfg, init_params(cfg, gen, dev), slots=spec["slots"],
+                     max_len=spec["max_len"], device=dev)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        rng = np.random.default_rng(0)
+        lens = rng.integers(spec["low"], spec["high"] + 1, spec["requests"]).tolist()
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+        if cfg.num_codebooks > 1:
+            prompts = [np.tile(p[:, None], (1, cfg.num_codebooks)) for p in prompts]
+
+        def submit_all():
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=spec["max_new"])
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            return reqs
+
+        eng._probe_reset(torch)
+        eng.checking = True
+        checked = submit_all()
+        eng.run()
+        eng.checking = False
+        if not bool(eng.finite):
+            raise AssertionError(f"non-finite logits in the {arch} serve run")
+        eng._probe_reset(torch)
+        reqs = submit_all()
+        torch.cuda.synchronize()
+        steps0 = eng.stats["decode_steps"]
+        for fn in counters.values():
+            fn.launches = 0
+        t1 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = {k: fn.launches for k, fn in counters.items()}
+        steps = eng.stats["decode_steps"] - steps0
+        kinds = [slot_kind(cfg, i)["kind"] for i in range(layer_period(cfg))] * num_groups(cfg)
+        n_attn = kinds.count("attn")
+        expect = {"flash_attention": n_attn * len(reqs), "decode_attention": n_attn * steps,
+                  "ssd_scan": 0, "quantize": 0, "dequantize": 0}
+        toks = sum(len(r.out_tokens) for r in reqs)
+        d = np.asarray(eng.decode_ms)
+        print(f"[zoo] {arch}: {cfg.num_layers} layers{f' (cut from {get_config(arch).num_layers})' if layers else ''}, "
+              f"d_model {cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} kv heads of "
+              f"{cfg.head_dim}, {cfg.param_count() / 1e9:.3f}B params, set up in {setup:.2f} s; "
+              f"prompt lengths {lens}, buckets {sorted(eng.prefill_ms)}; {len(reqs)} requests, "
+              f"{toks} tokens in {wall:.3f} s = {toks / wall:.2f} tok/s, {steps} decode steps, "
+              f"decode ms median {np.median(d):.2f}; launches {launches}; the checked pass's "
+              f"tokens the timed pass's: {[r.out_tokens for r in checked] == [r.out_tokens for r in reqs]}")
+        if not all(r.done and len(r.out_tokens) == spec["max_new"] for r in checked + reqs):
+            raise AssertionError(f"{arch}: not every request finished with {spec['max_new']} tokens")
+        if launches != expect:
+            raise AssertionError(f"{arch} launches {launches}, not one per attention layer and "
+                                 f"request or decode step: {expect}")
+        if cfg.num_codebooks > 1 and not all(
+                isinstance(r.out_tokens[0], int) and
+                all(len(t) == cfg.num_codebooks for t in r.out_tokens[1:]) for r in reqs):
+            raise AssertionError(f"{arch}: codebook tokens are not JAX's (an int, then lists)")
+        r0 = reqs[0]
+        rel, same, moe = kernels_vs_plain(torch, dev, cfg, eng.params, r0.prompt,
+                                          r0.out_tokens[:3], eng.max_len,
+                                          bucket=eng._bucket_len(len(r0.prompt)))
+        pinned = ", every token routed to the plain run's experts" if moe else ""
+        print(f"[zoo] {arch}: kernels vs plain, request 0 (prompt {len(r0.prompt)}): rel err of "
+              f"prefill + 3 decode logits {[f'{x:.3g}' for x in rel]} (tol {MODEL_REL_TOL}"
+              f"{pinned}), same argmax {same}" + (
+                  f"; unpinned (each run routing by its own router, no limit) "
+                  f"{[f'{x:.3g}' for x in moe['unpinned']]}, {moe['flips']} of {moe['routed']} "
+                  f"routed tokens with another top-{cfg.num_experts_per_tok} set" if moe else ""))
+        if not max(rel) < MODEL_REL_TOL:
+            raise AssertionError(f"{arch} model logits with kernels disagree: {rel}")
+        if cfg.frontend == "vision":
+            fe = (np.random.default_rng(0).standard_normal((cfg.frontend_tokens, cfg.d_model))
+                  * 0.02).astype(np.float32)
+            rel, same, _ = kernels_vs_plain(torch, dev, cfg, eng.params, r0.prompt,
+                                            r0.out_tokens[:3], eng.max_len, frontend=fe)
+            print(f"[zoo] {arch}: kernels vs plain after {cfg.frontend_tokens} frontend rows, "
+                  f"request 0: rel err {[f'{x:.3g}' for x in rel]} (tol {MODEL_REL_TOL}), "
+                  f"same argmax {same}")
+            if not max(rel) < MODEL_REL_TOL:
+                raise AssertionError(f"{arch} frontend logits with kernels disagree: {rel}")
+        if cfg.num_experts:
+            metrics = moe_prefill_metrics(torch, dev, cfg, eng.params, prompts[0])
+            drop = [float(m.dropped_frac) for m in metrics]
+            load = metrics[0].expert_load
+            print(f"[zoo] {arch}: MoE prefill of request 0 ({len(prompts[0])} tokens, top-"
+                  f"{cfg.num_experts_per_tok} of {cfg.num_experts}): dropped_frac per layer max "
+                  f"{max(drop):.3g} over {len(drop)} layers; layer 0 expert_load min "
+                  f"{load.min().item():.4f} max {load.max().item():.4f}: "
+                  f"{[round(x, 4) for x in load.tolist()]}")
+            if max(drop) != 0.0:
+                raise AssertionError(f"{arch}: a lossless prefill dropped assignments: {drop}")
+        if arch == ZOO_LONG["arch"]:
+            zoo_long_prompt(torch, dev, cfg, eng.params)
+        for k in total:
+            total[k] += launches[k]
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[zoo] {arch}: peak memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} "
+              f"GiB; {time.perf_counter() - t0:.1f} s")
+    print(f"[zoo] launches over the timed passes: {total}")
+    return total
+
+
 def profile_train(torch, tr):
     """Where a train step's time goes: one more step under
     ``torch.profiler``; host wall, device busy, the largest device items,
@@ -1743,6 +2093,12 @@ def main() -> int:
     # 7. colocate: a serve tenant (K1, K2) beside a train tenant (K4a, K4b)
     launches_coloc = phase_colocate(torch, dev)
     lap("colocate internlm2-1.8b")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. zoo: every other arch one card holds, served through K1 and K2
+    launches_zoo = phase_zoo(torch, dev)
+    lap("zoo")
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -1751,9 +2107,20 @@ def main() -> int:
              launches=launches["flash_attention"],
              staged_launches=staged_launches["flash_attention"],
              colocate_launches=launches_coloc["flash_attention"],
+             zoo_launches=launches_zoo["flash_attention"],
              shape=f"B=1 S={s} Hq=16 Hkv=8 hd=128 bf16",
              **rows[("flash_attention", s)])
         for s in FA_PATH_LENS
+    ] + [
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:28",
+             launches=launches["flash_attention"],
+             staged_launches=staged_launches["flash_attention"],
+             colocate_launches=launches_coloc["flash_attention"],
+             zoo_launches=launches_zoo["flash_attention"],
+             **rows[("flash_attention", arch, s)])
+        for arch, _, _, _, _, lens in ZOO_FA_CASES for s in lens
     ] + [
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1761,13 +2128,15 @@ def main() -> int:
              launches=launches["decode_attention"],
              staged_launches=staged_launches["decode_attention"],
              colocate_launches=launches_coloc["decode_attention"],
+             zoo_launches=launches_zoo["decode_attention"],
              **rows[("decode_attention", key)])
-        for key in ("path",) + DEC_FILLS
+        for key in ("path", "glm4-9b path") + DEC_FILLS
     ] + [
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:28",
              launches=launches_ssm["ssd_scan"], colocate_launches=launches_coloc["ssd_scan"],
+             zoo_launches=launches_zoo["ssd_scan"],
              shape=f"B=1 S={s} H=80 P=64 N=128 bf16",
              **rows[("ssd_scan", s)])
         for s in SSD_PATH_LENS
@@ -1777,13 +2146,15 @@ def main() -> int:
              replaces="src/repro/kernels/quant/kernel.py:15",
              launches=launches_train["quantize"],
              cluster_launches=launches_cluster["quantize"],
-             colocate_launches=launches_coloc["quantize"], **rows["quantize"]),
+             colocate_launches=launches_coloc["quantize"],
+             zoo_launches=launches_zoo["quantize"], **rows["quantize"]),
         dict(name="dequantize", route="cuda",
              source="src/repro_torch/kernels/csrc/quant.cu",
              replaces="src/repro/kernels/quant/kernel.py:22",
              launches=launches_train["dequantize"],
              cluster_launches=launches_cluster["dequantize"],
-             colocate_launches=launches_coloc["dequantize"], **rows["dequantize"]),
+             colocate_launches=launches_coloc["dequantize"],
+             zoo_launches=launches_zoo["dequantize"], **rows["dequantize"]),
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")):

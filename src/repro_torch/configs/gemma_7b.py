@@ -1,0 +1,19 @@
+"""Gemma 7B  [arXiv:2403.08295] — GeGLU, head_dim=256 (kv=16 == MHA on 7b)."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="gemma-7b",
+    family="dense",
+    num_layers=28,
+    d_model=3072,
+    num_heads=16,
+    num_kv_heads=16,
+    head_dim=256,
+    d_ff=24576,
+    vocab_size=256000,
+    rope_theta=10000.0,
+    mlp_activation="gelu",
+    tie_embeddings=True,
+    embed_scale=True,
+    source="arXiv:2403.08295",
+)

@@ -1,21 +1,30 @@
-"""--arch registry: the architectures the port can run.
+"""--arch registry: resolve architecture ids to ModelConfigs.
 
-``internlm2-1.8b`` (dense attention with a gated MLP) and
-``mamba2-2.7b`` (attention-free Mamba2 SSD layers). The other archs of
-the JAX package need MoE, hybrid attention + SSM with MoE, codebooks,
-frontends or other attention variants, which later slices of the port
-add.
+The JAX package's ten archs in its order (``repro/configs/registry.py``):
+dense attention (internlm2, glm4 with partial rotary, gemma with
+``embed_scale``, gemma2 with local/global windows and softcaps), MoE
+(granite-moe, moonshot), a vision frontend (internvl2), audio codebooks
+(musicgen), Mamba2 SSD layers (mamba2) and the hybrid attention + SSM
+with MoE (jamba).
 """
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
+    "glm4-9b": "repro_torch.configs.glm4_9b",
+    "gemma2-9b": "repro_torch.configs.gemma2_9b",
+    "gemma-7b": "repro_torch.configs.gemma_7b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_16b_a3b",
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large",
 }
 
 
@@ -25,9 +34,12 @@ def list_archs() -> List[str]:
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULES:
-        raise KeyError(f"the port cannot run --arch {arch!r} yet; "
-                       f"it runs: {', '.join(_MODULES)}")
+        raise KeyError(f"unknown --arch {arch!r}; known: {', '.join(_MODULES)}")
     cfg: ModelConfig = importlib.import_module(_MODULES[arch]).CONFIG
     if cfg.name != arch:
         raise ValueError(f"config module for {arch!r} names {cfg.name!r}")
     return cfg
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in _MODULES}

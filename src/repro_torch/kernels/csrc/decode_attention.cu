@@ -14,7 +14,7 @@
 // plain decode_attention does; a row with no visible key comes out 0.
 //
 // Layout: q (B,1,Hq,hd) f32 or bf16, caches (B,S,Hkv,hd) f32 or bf16,
-// out (B,1,Hq,hd) in the cache dtype. hd <= 256, hd % 4 == 0, G <= 8.
+// out (B,1,Hq,hd) in the cache dtype. hd <= 256, hd % 4 == 0, G <= 16.
 //
 // What bounds it on the card: the bytes of the cache rows it reads. Each
 // k/v element serves G = Hq/Hkv query heads only, far below the card's
@@ -29,7 +29,8 @@
 //    first, owns split_rows consecutive cache rows of one (b, kv head); a
 //    block whose rows lie wholly outside [lo, clen) returns at once and
 //    writes nothing. Each of its 8 warps takes chunks of UNROLL
-//    consecutive rows (8 at hd <= 128: 64 rows a block in one step): a
+//    consecutive rows (8 at hd <= 128 and G <= 8: 64 rows a block in one
+//    step; 4 otherwise, where the G heads' q and acc take the registers): a
 //    lane loads one or two 16-byte quads of each k and v row, so a warp
 //    reads a whole row in one coalesced transaction and keeps 2 x UNROLL
 //    rows in flight; the G query heads reuse each loaded row from
@@ -45,6 +46,12 @@
 //    It is a programmatic dependent launch (Hopper's griddepcontrol), so
 //    its blocks are set up while the split pass drains and wait on the
 //    card, not on the host, for the partials.
+// G is a template parameter rounded up to 1, 2, 4, 8 or 16 (glm4-9b's 32
+// q heads over 2 kv heads). At G = 16 a lane holds 16 heads' q and acc,
+// 128 registers at hd 128 and 256 at hd 256, so hd 256 spills to local
+// memory (correct, slower; ptxas -v prints it in the build log), and the
+// warps' states need WARPS x G x hd floats of shared memory: 64 KB at hd
+// 128, 128 KB at hd 256, under the 227 KB a block may take.
 // split_rows is the caller's, a function of the shapes only
 // (decode_attention/ops.py::split_rows), so the host never reads
 // cache_len. split_rows = S is the one-split schedule (a block per
@@ -65,7 +72,7 @@ decode_split_kernel(const void* __restrict__ q, int q_bf16,
                     int S, int Hq, int Hkv, int hd, int G, int rows, int nsplit,
                     int window, float scale, float softcap) {
   constexpr int QPL = (HD + 127) / 128;          // quads per lane
-  constexpr int UNROLL = QPL == 1 ? 8 : 4;       // cache rows per warp per step
+  constexpr int UNROLL = (QPL == 1 && GT <= 8) ? 8 : 4;  // cache rows per warp per step
   extern __shared__ float smem[];
 
   const int hk = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
@@ -272,6 +279,7 @@ cudaError_t dispatch_groups(const Args& a) {
   if (a.G <= 2) return launch<TC, HD, 2>(a);
   if (a.G <= 4) return launch<TC, HD, 4>(a);
   if (a.G <= 8) return launch<TC, HD, 8>(a);
+  if (a.G <= 16) return launch<TC, HD, 16>(a);
   return cudaErrorInvalidValue;
 }
 

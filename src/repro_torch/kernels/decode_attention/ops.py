@@ -20,7 +20,7 @@ from repro_torch.kernels.decode_attention.ref import decode_attention
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-MAX_GROUPS = 8
+MAX_GROUPS = 16           # glm4-9b: 32 q heads over 2 kv heads
 SMS = 132                 # streaming multiprocessors of an H100 SXM
 MIN_SPLIT_ELEMS = 8192    # a split reads at least 64 rows of hd 128 per kv head
 

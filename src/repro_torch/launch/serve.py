@@ -3,12 +3,13 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
 
-runs the full-width model on the card (random weights from seed 0):
-internlm2's prefill through the CUDA flash-attention kernel and decode
-through the CUDA flash-decoding kernel; mamba2's prefill through the
-CUDA SSD-scan kernel and decode through the one-token recurrence.
-``--reduced --device cpu`` runs a tiny model on the CPU through the
-plain versions.
+runs the full-width model of any registry arch on the card (random
+weights from seed 0): attention prefill through the CUDA flash-attention
+kernel and decode through the CUDA flash-decoding kernel; Mamba2 prefill
+through the CUDA SSD-scan kernel and decode through the one-token
+recurrence. A codebook arch (musicgen-large) takes (S, C) prompts, as
+the JAX launcher makes them. ``--reduced --device cpu`` runs a tiny
+model on the CPU through the plain versions.
 
 ``--kv-fabric`` plans the synchronous engine's decode-cache placement
 on the §5.2 KV fabric. ``--staged`` runs the event-driven pipeline on
@@ -131,6 +132,8 @@ def main(argv=None):
         reqs = ArrivalGenerator(trace, seed=args.trace_seed,
                                 vocab=cfg.vocab_size).requests()
         for r in reqs:
+            if cfg.num_codebooks > 1:
+                r.prompt = np.tile(r.prompt[:, None], (1, cfg.num_codebooks))
             r.temperature = args.temperature
             eng.submit(r)
         print(f"[serve] trace {trace.name!r}: {len(reqs)} arrivals over "
@@ -140,7 +143,9 @@ def main(argv=None):
         rng = np.random.default_rng(0)
         reqs = []
         for i in range(args.requests):
-            prompt = rng.integers(0, cfg.vocab_size, size=(args.prompt_len,)).astype(np.int32)
+            shape = ((args.prompt_len, cfg.num_codebooks)
+                     if cfg.num_codebooks > 1 else (args.prompt_len,))
+            prompt = rng.integers(0, cfg.vocab_size, size=shape).astype(np.int32)
             r = Request(rid=i, prompt=prompt, max_new_tokens=args.max_new,
                         temperature=args.temperature,
                         arrival=i * args.arrival_spacing if args.staged else 0.0)

@@ -1,5 +1,5 @@
-"""The decoder LM, the counterpart of ``repro/models/model.py`` for
-attention layers with a dense MLP and Mamba2 SSM layers.
+"""The decoder LM, the counterpart of ``repro/models/model.py``: dense,
+MoE, SSM, hybrid, vision-frontend and audio-codebook backbones.
 
 ``forward`` covers train and prefill without a cache, with the JAX remat
 policies (``torch.utils.checkpoint`` per period group); ``cross_entropy``
@@ -21,8 +21,13 @@ the new SSM states into the cache it is given, in place, and returns
 that same cache: JAX's ``.at[].set`` builds a new array, which on the
 card would copy the whole cache every step.
 
-Codebooks (but in ``cross_entropy``), frontends and MoE layers raise
-(later slices).
+An MoE layer's FFN is ``moe.moe_ffn`` (the local dispatch; its
+load-balance loss sums into ``ForwardResult.aux_loss``), with
+``capacity_factor`` 1.25 in ``forward`` and lossless (``None``) in
+``prefill`` and ``decode_step``, as in the JAX package. Codebook configs
+take tokens (B,S,C), embed them as the sum of the per-codebook tables
+and give logits (B,S,C,V); a frontend's embeddings (B,F,D) go in front
+of the token embeddings.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import activation_fn, mlp, rmsnorm, rope
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import (check_supported, layer_period,
                                        num_groups, slot_kind)
 
@@ -49,7 +55,7 @@ PyTree = Any
 
 class ForwardResult(NamedTuple):
     hidden: torch.Tensor       # (B, S, D)
-    aux_loss: torch.Tensor     # MoE load-balance loss (0: no MoE here)
+    aux_loss: torch.Tensor     # MoE load-balance loss (0 for non-MoE)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -73,11 +79,23 @@ def _layers(cfg: ModelConfig, params: PyTree):
 # embeddings
 # ----------------------------------------------------------------------
 
-def embed_tokens(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
+                 frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings in ``cfg.dtype`` (``model.py:35-50``): tokens (B,S),
+    or (B,S,C) for codebooks, summed over the per-codebook tables in f32;
+    ``frontend_embeds`` (B,F,D) in front of them."""
     check_supported(cfg)
-    x = params["embed"]["table"][tokens.long()].to(_dtype(cfg))
+    table = params["embed"]["table"]
+    tokens = tokens.long()
+    if cfg.num_codebooks > 1:
+        x = sum(table[c][tokens[..., c]] for c in range(cfg.num_codebooks))
+    else:
+        x = table[tokens]
+    x = x.to(_dtype(cfg))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     return x
 
 
@@ -237,20 +255,33 @@ def _ssm_mixer(cfg: ModelConfig, p: dict, x: torch.Tensor, *, impl: str,
     return _ssm_out(cfg, p, y, z, x.dtype)
 
 
-def _ffn(cfg: ModelConfig, kind: dict, p: dict, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, kind: dict, p: dict, x: torch.Tensor,
+         capacity_factor: Optional[float]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The residual FFN (``model.py:163-173``): the dense gated MLP, or
+    the MoE at ``capacity_factor``. Returns (x, the MoE's load-balance
+    loss, or None)."""
     if not kind["has_ffn"]:
-        return x
+        return x, None
     h = rmsnorm(x, p["norm2"]["scale"], cfg.norm_eps)
-    return x + mlp(h, p["mlp"], activation_fn(cfg.mlp_activation))
+    act = activation_fn(cfg.mlp_activation)
+    if kind["moe"]:
+        y, metrics = moe_ffn(h, p["moe"], num_experts=cfg.num_experts,
+                             top_k=cfg.num_experts_per_tok, activation=act,
+                             capacity_factor=capacity_factor)
+        return x + y, metrics.aux_loss
+    return x + mlp(h, p["mlp"], act), None
 
 
 def apply_layer(cfg: ModelConfig, slot: int, p: dict, x: torch.Tensor, *,
                 positions, impl: str = "auto", cache: Optional[dict] = None,
-                pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One layer: an attention or SSM mixer, then the dense MLP where the
-    config has one. With ``cache`` (one layer's ``{"k","v"}`` of shape
-    (B,max_len,Hkv,hd), or its SSM states) it is a decode step that
-    writes the cache in place."""
+                pos: Optional[torch.Tensor] = None,
+                capacity_factor: Optional[float] = 1.25):
+    """One layer: an attention or SSM mixer, then the dense MLP or the MoE
+    where the config has an FFN. With ``cache`` (one layer's ``{"k","v"}``
+    of shape (B,max_len,Hkv,hd), or its SSM states) it is a decode step
+    that writes the cache in place. Returns (x, aux): the MoE's
+    load-balance loss, None for other layers (JAX's 0, ``model.py:149-175``,
+    without a device op on every decode step)."""
     kind = slot_kind(cfg, slot)
     h = rmsnorm(x, p["norm1"]["scale"], cfg.norm_eps)
     if kind["kind"] == "attn":
@@ -258,7 +289,7 @@ def apply_layer(cfg: ModelConfig, slot: int, p: dict, x: torch.Tensor, *,
                                impl=impl, cache=cache, pos=pos)
     else:
         mix = _ssm_mixer(cfg, p["ssm"], h, impl=impl, cache=cache)
-    return _ffn(cfg, kind, p, x + mix)
+    return _ffn(cfg, kind, p, x + mix, capacity_factor)
 
 
 # ----------------------------------------------------------------------
@@ -278,37 +309,43 @@ def _save_matmuls(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def forward(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
-            impl: str = "auto", remat: str = "minimal") -> ForwardResult:
-    """Hidden states (B,S,D) after the final norm. ``remat`` applies when
-    autograd records: each period group under ``torch.utils.checkpoint``,
-    saving nothing inside (``"full"``), the plain matrix products'
-    outputs (``"minimal"``) or everything (``"none"``). It changes memory,
-    never the numbers."""
+def forward(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
+            frontend_embeds: Optional[torch.Tensor] = None, *,
+            impl: str = "auto", remat: str = "minimal",
+            capacity_factor: Optional[float] = 1.25) -> ForwardResult:
+    """Hidden states (B,F+S,D) after the final norm, and the MoE layers'
+    summed load-balance loss. ``remat`` applies when autograd records:
+    each period group under ``torch.utils.checkpoint``, saving nothing
+    inside (``"full"``), the plain matrix products' outputs
+    (``"minimal"``) or everything (``"none"``). It changes memory, never
+    the numbers."""
     if remat not in REMATS:
         raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, frontend_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     period = layer_period(cfg)
 
-    def group_body(x, g):
+    def group_body(x, aux, g):
         for slot in range(period):
-            x = apply_layer(cfg, slot, _group(params["layers"][slot], g), x,
-                            positions=positions, impl=impl)
-        return x
+            x, a = apply_layer(cfg, slot, _group(params["layers"][slot], g), x,
+                               positions=positions, impl=impl,
+                               capacity_factor=capacity_factor)
+            aux = aux if a is None else aux + a
+        return x, aux
 
     # no random ops in the model: the RNG state need not be replayed
     kw = dict(use_reentrant=False, preserve_rng_state=False)
     if remat == "minimal":
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
                                              _save_matmuls)
+    aux = torch.zeros((), device=x.device)
     for g in range(num_groups(cfg)):
         if remat == "none" or not torch.is_grad_enabled():
-            x = group_body(x, g)
+            x, aux = group_body(x, aux, g)
         else:
-            x = checkpoint(group_body, x, g, **kw)
+            x, aux = checkpoint(group_body, x, aux, g, **kw)
     x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return ForwardResult(hidden=x, aux_loss=torch.zeros((), device=x.device))
+    return ForwardResult(hidden=x, aux_loss=aux)
 
 
 def _head_table(cfg: ModelConfig, params: PyTree) -> torch.Tensor:
@@ -317,9 +354,14 @@ def _head_table(cfg: ModelConfig, params: PyTree) -> torch.Tensor:
 
 
 def logits_for(cfg: ModelConfig, params: PyTree, hidden: torch.Tensor) -> torch.Tensor:
-    """Full f32 logits (B,S,V) from bf16 products."""
+    """Full f32 logits (B,S,V), or (B,S,C,V) for codebooks, from bf16
+    products (``model.py:221-233``)."""
     table = _head_table(cfg, params).to(torch.bfloat16)
-    logits = (hidden.to(torch.bfloat16) @ table.T).float()
+    h = hidden.to(torch.bfloat16)
+    if cfg.num_codebooks > 1:
+        logits = torch.einsum("bsd,cvd->bscv", h, table).float()
+    else:
+        logits = (h @ table.T).float()
     if cfg.final_logit_softcap:
         logits = cfg.final_logit_softcap * torch.tanh(logits / cfg.final_logit_softcap)
     return logits
@@ -413,26 +455,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def decode_step(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
                 cache: Tuple[dict, ...], pos: Union[int, torch.Tensor], *,
                 impl: str = "auto"):
-    """One decode step. tokens (B,1); pos a scalar (aligned batch) or (B,)
-    int tensor (continuous batching). Writes the cache in place.
-    Returns (logits (B,1,V), cache)."""
+    """One decode step. tokens (B,1), or (B,1,C) for codebooks; pos a
+    scalar (aligned batch) or (B,) int tensor (continuous batching). MoE
+    layers dispatch losslessly. Writes the cache in place. Returns
+    (logits (B,1,V) or (B,1,C,V), cache)."""
     x = embed_tokens(cfg, params, tokens)
     pos = torch.as_tensor(pos, device=x.device)
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
     for slot, g, p in _layers(cfg, params):
         c = {name: t[g] for name, t in cache[slot].items()}
-        x = apply_layer(cfg, slot, p, x, positions=positions, impl=impl,
-                        cache=c, pos=pos)
+        x, _ = apply_layer(cfg, slot, p, x, positions=positions, impl=impl,
+                           cache=c, pos=pos, capacity_factor=None)
     x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return logits_for(cfg, params, x), cache
 
 
 def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
-            max_len: int, *, impl: str = "auto",
-            cache_dtype: torch.dtype = torch.bfloat16,
+            max_len: int, *, frontend_embeds: Optional[torch.Tensor] = None,
+            impl: str = "auto", cache_dtype: torch.dtype = torch.bfloat16,
             length: Optional[int] = None):
-    """Run the whole prompt and build a cache for decode.
-    Returns (logits (B,1,V), cache, next_pos).
+    """Run the whole prompt (after ``frontend_embeds``, where given) and
+    build a cache for decode; MoE layers dispatch losslessly. Returns
+    (logits (B,1,V) or (B,1,C,V), cache, next_pos).
 
     ``length`` supports right-padded prompts (the serving engine's
     power-of-two buckets): logits come from the token at ``length - 1``
@@ -444,7 +488,7 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     An SSM layer keeps the final state and the conv inputs for decode;
     where JAX runs ``ssd_chunked`` (``model.py:437``), the card runs the
     CUDA ``ssd_scan`` kernel, which returns the final state too."""
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, frontend_embeds)
     b, s, _ = x.shape
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
@@ -475,7 +519,7 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
             c["conv_x"][g] = st_x
             c["conv_b"][g] = st_b
             c["conv_c"][g] = st_c
-        x = _ffn(cfg, kind, p, x)
+        x, _ = _ffn(cfg, kind, p, x, None)
     x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
     npos = s if length is None else int(length)
     return logits_for(cfg, params, x[:, npos - 1:npos]), cache, npos

@@ -5,9 +5,12 @@ of per-slot dicts whose tensors carry a leading ``G = L / period`` group
 dim. Layouts are the JAX ones: ``wq (D,H,hd)``, ``wo (H,hd,D)``,
 ``w_in (D,2,F)``, ``w_out (F,D)``. Master weights are f32.
 
-Attention slots with a dense MLP and Mamba2 SSM slots (``w_xz (D,2,Di)``,
-``w_bc (D,2,N)``, ``w_dt (D,H)``, ``conv_* (K,·)``, ``out (Di,D)``) exist
-in the port so far; MoE slots, codebooks and frontends raise.
+Every slot kind of the JAX package: attention (``wq``, ``wk``, ``wv``,
+``wo``) or Mamba2 SSM (``w_xz (D,2,Di)``, ``w_bc (D,2,N)``, ``w_dt (D,H)``,
+``conv_* (K,·)``, ``out (Di,D)``), then a dense MLP or an MoE FFN
+(``router (D,E)``, ``w_in (E,D,2,F)``, ``w_out (E,F,D)``). Codebook
+configs embed and unembed with ``(C,V,D)`` tables; a frontend adds no
+params (its embeddings come precomputed, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -49,14 +52,16 @@ def slot_kind(cfg: ModelConfig, slot: int) -> Dict[str, Any]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise on what the port cannot run yet (later slices add it)."""
-    if cfg.num_codebooks > 1 or cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: codebooks and frontends are "
-                                  "not ported yet")
-    for slot in range(layer_period(cfg)):
-        kind = slot_kind(cfg, slot)
-        if kind["moe"]:
-            raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet")
+    """Raise on a config the model cannot run: query heads that do not
+    group over the kv heads, or more experts a token than the layer has.
+    Every arch of the registry passes."""
+    layer_period(cfg)
+    if cfg.num_heads and (not cfg.num_kv_heads or cfg.num_heads % cfg.num_kv_heads):
+        raise ValueError(f"{cfg.name}: {cfg.num_heads} q heads do not group over "
+                         f"{cfg.num_kv_heads} kv heads")
+    if cfg.num_experts and not 0 < cfg.num_experts_per_tok <= cfg.num_experts:
+        raise ValueError(f"{cfg.name}: top-{cfg.num_experts_per_tok} routing over "
+                         f"{cfg.num_experts} experts")
 
 
 def _normal(shape, std, generator, device):
@@ -113,20 +118,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def ones(n):
         return torch.ones((g, n), dtype=torch.float32, device=device)
 
-    vshape = (cfg.vocab_size, d)
+    vshape = ((cfg.num_codebooks, cfg.vocab_size, d) if cfg.num_codebooks > 1
+              else (cfg.vocab_size, d))
     params: dict = {"embed": {"table": _normal(vshape, 0.02, generator, device)}}
     layers = []
     for slot in range(layer_period(cfg)):
+        kind = slot_kind(cfg, slot)
         p: dict = {"norm1": {"scale": ones(d)}}
-        if slot_kind(cfg, slot)["kind"] == "attn":
+        if kind["kind"] == "attn":
             p["attn"] = {"wq": dense((d, hq, hd), d),
                          "wk": dense((d, hkv, hd), d),
                          "wv": dense((d, hkv, hd), d),
                          "wo": dense((hq, hd, d), cfg.q_dim)}
         else:
             p["ssm"] = _init_ssm(cfg, g, dense, ones, generator, device)
-        if slot_kind(cfg, slot)["has_ffn"]:
+        if kind["has_ffn"]:
             p["norm2"] = {"scale": ones(d)}
+        if kind["has_ffn"] and kind["moe"]:        # params.py:70-76, fan-in D, D, F
+            e = cfg.num_experts
+            p["moe"] = {"router": dense((d, e), d), "w_in": dense((e, d, 2, f), d),
+                        "w_out": dense((e, f, d), f)}
+        elif kind["has_ffn"]:
             p["mlp"] = {"w_in": dense((d, 2, f), d), "w_out": dense((f, d), f)}
         layers.append(p)
     params["layers"] = tuple(layers)
@@ -138,7 +150,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 #: leaves that ``compute_copy`` keeps in f32
-F32_LEAVES = ("scale", "table", "A_log", "D", "dt_bias", "norm")
+F32_LEAVES = ("scale", "table", "A_log", "D", "dt_bias", "norm", "router")
 
 
 def compute_copy(params: PyTree) -> PyTree:
@@ -148,10 +160,11 @@ def compute_copy(params: PyTree) -> PyTree:
     product (``model.py:62-64,94-95,104-108``, ``layers.py:94-99``) and
     the SSM conv weights to the bf16 activations' dtype (``:115-117``); a
     copy cast once holds the same values and saves the cast on every
-    step. Norm scales, the embedding table and the SSM's ``A_log``,
-    ``D``, ``dt_bias`` and gated-norm ``norm`` stay f32: the JAX model
-    reads them in f32 (``model.py:111,119,127,143``), and
-    ``embed_tokens`` gathers f32 rows and casts only those."""
+    step. Norm scales, the embedding table, the SSM's ``A_log``, ``D``,
+    ``dt_bias`` and gated-norm ``norm``, and the MoE router stay f32: the
+    JAX model reads them in f32 (``model.py:111,119,127,143``,
+    ``moe.py:40``), and ``embed_tokens`` gathers f32 rows and casts only
+    those."""
     def walk(node, name=""):
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}

@@ -188,18 +188,21 @@ class _EngineCore:
             req.out_tokens.append(self._sim_token(req.rid, 0))
             self.stats["prefill_tokens"] += n
             return None, n
-        prompt = np.asarray(req.prompt)
+        prompt = np.asarray(req.prompt)                  # (S,) or (S, C)
         n = prompt.shape[0]
         bucket = self._bucket_len(n)
         if bucket > n:
-            prompt = np.concatenate([prompt, np.zeros((bucket - n,), prompt.dtype)])
+            pad = np.zeros((bucket - n,) + prompt.shape[1:], prompt.dtype)
+            prompt = np.concatenate([prompt, pad])
         # a prefill "compilation" is a distinct bucket, as in the JAX engine
-        self._compiled_buckets.add((bucket,))
-        toks = torch.as_tensor(prompt, device=self.device)[None]        # (1, S)
+        self._compiled_buckets.add((bucket,) + prompt.shape[1:])
+        toks = torch.as_tensor(prompt, device=self.device)[None]        # (1, S[,C])
         logits, cache1, npos = M.prefill(self.cfg, self.params, toks, self.max_len,
                                          impl=self.impl,
                                          cache_dtype=self.cache_dtype, length=n)
         tok = self._sample(logits[:, -1], req.temperature)
+        # codebook 0 only, as the JAX engine keeps it (engine.py:184); the
+        # first decode step feeds it to every codebook
         req.out_tokens.append(int(tok.reshape(-1)[0]))
         self.stats["prefill_tokens"] += n
         self.stats["prefill_padded_tokens"] += bucket - n
@@ -234,17 +237,19 @@ class _EngineCore:
 
     # ------------------------------------------------------------------
     def _decode_compute(self, act: List[int]) -> Optional[torch.Tensor]:
-        """One decode step for all slots; returns logits (B,1,V)."""
+        """One decode step for all slots; returns logits (B,1,V), or
+        (B,1,C,V) for codebooks."""
         if self.compute == "sim":
             for s in range(self.slots):
                 if self.active[s] is not None:
                     self.pos[s] += 1
             self.stats["decode_steps"] += 1
             return None
-        last = np.zeros((self.slots,), np.int64)
+        cb = self.cfg.num_codebooks
+        last = np.zeros((self.slots,) + ((cb,) if cb > 1 else ()), np.int64)
         for s in act:
             last[s] = self.active[s].out_tokens[-1]
-        tokens = torch.as_tensor(last, device=self.device)[:, None]     # (B,1)
+        tokens = torch.as_tensor(last, device=self.device)[:, None]     # (B,1[,C])
         logits, self.cache = M.decode_step(self.cfg, self.params, tokens,
                                            self.cache, self.pos, impl=self.impl)
         live = [1 if self.active[s] is not None else 0 for s in range(self.slots)]
@@ -269,16 +274,17 @@ class _EngineCore:
                     self.finished.append(req)
                     retired.append(req)
             return retired
-        nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()    # host sync
+        nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()    # host sync; (B,[C])
         pos = self.pos.cpu().numpy()
         retired: List[Request] = []
         for s in act:
             req = self.active[s]
             if req.temperature > 0:
-                val = int(self._sample(logits[s:s + 1, 0], req.temperature)[0])
+                val = self._sample(logits[s:s + 1, 0], req.temperature).cpu().numpy()
             else:
-                val = int(nxt[s])
-            req.out_tokens.append(val)
+                val = nxt[s]
+            val = val.reshape(-1)
+            req.out_tokens.append(int(val[0]) if val.size == 1 else val.tolist())
             if len(req.out_tokens) >= req.max_new_tokens or \
                     int(pos[s]) >= self.max_len - 1:
                 req.done = True

@@ -31,16 +31,19 @@ Batch = Dict[str, torch.Tensor]
 
 
 def loss_fn(cfg: ModelConfig, params: PyTree, batch: Batch, *,
-            impl: str = "auto", remat: str = "minimal", loss_chunk: int = 512):
-    """(CE + router_aux_loss · aux, {"ce", "aux"}). ``impl="auto"`` is
-    the JAX package's rule for a training forward (``train_impl``): the
-    plain attention below 2048 tokens, the blocked scan from 2048, never
-    the forward-only CUDA kernels."""
-    if "frontend_embeds" in batch:
-        raise NotImplementedError("frontend_embeds: frontends are not ported yet")
+            impl: str = "auto", remat: str = "minimal",
+            capacity_factor: Optional[float] = 1.25, loss_chunk: int = 512):
+    """(CE + router_aux_loss · aux, {"ce", "aux"}) (``train_step.py:36-46``):
+    the batch's ``frontend_embeds`` go in front of its tokens, MoE layers
+    dispatch at ``capacity_factor``. ``impl="auto"`` is the JAX package's
+    rule for a training forward (``train_impl``) at the whole sequence's
+    length: the plain attention below 2048 tokens, the blocked scan from
+    2048, never the forward-only CUDA kernels."""
+    fe = batch.get("frontend_embeds")
     if impl == "auto":
-        impl = train_impl(batch["tokens"].shape[1])
-    res = M.forward(cfg, params, batch["tokens"], impl=impl, remat=remat)
+        impl = train_impl(batch["tokens"].shape[1] + (0 if fe is None else fe.shape[1]))
+    res = M.forward(cfg, params, batch["tokens"], fe, impl=impl, remat=remat,
+                    capacity_factor=capacity_factor)
     ce = M.cross_entropy(cfg, params, res.hidden, batch["labels"],
                          batch["loss_mask"], chunk=loss_chunk)
     aux_w = cfg.router_aux_loss if cfg.num_experts else 0.0

@@ -24,7 +24,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention
@@ -35,7 +35,7 @@ from repro_torch.kernels.quant.ref import dequantize_flat_ref, quantize_flat_ref
 from repro_torch.kernels.ssd_scan.ops import ssd_scan, tensor_core_path
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_sequential_ref
 from repro_torch.models import model as TM
-from repro_torch.models.params import init_params
+from repro_torch.models.params import check_supported, init_params
 from repro_torch.serve.engine import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -103,7 +103,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch, tmp_
 #: tracer's and arrivals')
 COPIES = ["obs/metrics.py", "offload/device.py", "offload/program.py",
           "offload/compression.py", "ckpt/replication.py", "ft/manager.py",
-          "ft/straggler.py", "train/pods.py"]
+          "ft/straggler.py", "train/pods.py"] + [
+    f"configs/{name}.py" for name in (
+        "internlm2_1_8b", "mamba2_2_7b", "glm4_9b", "gemma_7b", "gemma2_9b", "internvl2_2b",
+        "musicgen_large", "granite_moe_1b", "moonshot_16b_a3b", "jamba_1_5_large")]
 #: modules the port holds only some functions of, each the JAX function's
 PARTIAL_COPIES = {
     "core/compression.py": ["byte_codec", "default_codec", "offload_path_bandwidth",
@@ -206,11 +209,20 @@ def test_refuse_grad_helper():
 
 
 def test_unsupported_configs_raise():
+    """Every arch of the JAX registry runs in the port (MoE, codebooks and
+    frontends included); what no model can run raises: q heads that do
+    not group over the kv heads, top-k past the experts, an unknown arch."""
+    for arch in list_archs():
+        check_supported(get_config(arch))
     cfg = get_config("internlm2-1.8b").reduced(num_experts=4, num_experts_per_tok=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        init_params(cfg, torch.Generator(), device="cpu")
+    assert "moe" in init_params(cfg, torch.Generator(), device="cpu")["layers"][0]
+    for bad, msg in ((dict(num_kv_heads=3), "do not group"),
+                     (dict(num_experts=4, num_experts_per_tok=5), "top-5")):
+        with pytest.raises(ValueError, match=msg):
+            init_params(get_config("internlm2-1.8b").reduced(**bad), torch.Generator(),
+                        device="cpu")
     with pytest.raises(KeyError):
-        get_config("jamba-1.5-large-398b")
+        get_config("jamba-2-mini")
 
 
 @pytest.mark.gpu
@@ -221,10 +233,14 @@ def test_kernels_match_plain_versions_on_card():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    # (S, window, softcap, head dim, kv heads of the 4 q heads): hd 256 is
+    # gemma's, on the CUDA-core kernel in bf16 too, with gemma2's window
+    # and softcap (G = 2) and as MHA (gemma-7b, G = 1)
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        for s, win, cap in ((256, None, None), (100, 32, 30.0)):
-            q, k, v = (torch.randn((2, s, h, 64), generator=gen, device=dev).to(dtype)
-                       for h in (4, 2, 2))
+        for s, win, cap, d, hkv in ((256, None, None, 64, 2), (100, 32, 30.0, 64, 2),
+                                    (300, 96, 50.0, 256, 2), (130, None, None, 256, 4)):
+            q, k, v = (torch.randn((2, s, h, d), generator=gen, device=dev).to(dtype)
+                       for h in (4, hkv, hkv))
             n0 = flash_attention.launches
             out = flash_attention(q, k, v, window=win, softcap=cap)
             assert flash_attention.launches == n0 + 1
@@ -261,15 +277,17 @@ def test_kernels_match_plain_versions_on_card():
     assert (out[:2] - ref[:2]).abs().max().item() < 2e-5
     assert out[2].abs().max().item() == 0.0          # no visible key: 0, not NaN
     # its split pass and LSE merge at split edges: chip_smoke.py's
-    # DEC_SPLIT_CASES, per-row lengths, in f32 and bf16 (2e-5, 2e-2, and
-    # within half a bf16 step of the f32 result plus 2^-16 max|v|)
+    # DEC_SPLIT_CASES (G = 8 and 16, an f32 cache under a bf16 q),
+    # per-row lengths, in f32 and bf16 (2e-5, 2e-2, and within half a
+    # bf16 step of the f32 result plus 2^-16 max|v|)
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        for b, s, hq, hkv, d, win, cap, lengths in smoke.DEC_SPLIT_CASES:
+        for b, s, hq, hkv, d, win, cap, lengths, *cache in smoke.DEC_SPLIT_CASES:
+            cdt = getattr(torch, cache[0]) if cache else dtype
             qs = torch.randn((b, 1, hq, d), generator=gen, device=dev).to(dtype)
-            ks, vs = (torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+            ks, vs = (torch.randn((b, s, hkv, d), generator=gen, device=dev).to(cdt)
                       for _ in range(2))
             ls = torch.tensor(lengths, dtype=torch.int32, device=dev)
             n0 = decode_attention_kernel.launches

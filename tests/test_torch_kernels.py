@@ -206,6 +206,40 @@ def test_decode_split_emulation_path_shape():
     _check("decode split emulation at the path shape vs decode_attention", _err(ref, out), 2e-5)
 
 
+# K2 at G = 16 (B, S, Hq, Hkv, hd, window, softcap, per-row lengths):
+# glm4-9b's decode shape (32 q heads over 2 kv heads of 128, 4 slots,
+# max_len 1024) at the serve path's lengths, and a window across split
+# edges with a softcap and cache_len 1. (cache_len 0, where the kernel
+# gives 0 as Pallas does and the model's decode_attention a mean of v,
+# is held to Pallas in test_decode_split_emulation_edges_vs_pallas.)
+G16_CASES = [(4, 1024, 32, 2, 128, None, None, (1, 1024, 300, 77)),
+             (3, 256, 16, 1, 64, 40, 30.0, (256, 65, 1)),
+             (2, 128, 32, 2, 32, None, 50.0, (1, 100))]
+
+
+@pytest.mark.parametrize("case", G16_CASES)
+def test_decode_g16_vs_model_decode(case):
+    """16 q heads to a kv head: the wrapper's plain version (bf16 q, f32
+    cache, the serve path's dtypes) and the kernel's split and merge at
+    the wrapper's own split_rows, each against the JAX model's
+    decode_attention: max abs 2e-5 (f32 softmax in both)."""
+    b, s, hq, hkv, d, win, cap, lens = case
+    rng = np.random.default_rng(7)
+    qj, qt = _pair(_normal(rng, (b, 1, hq, d)), True)
+    kj, kt = _pair(_normal(rng, (b, s, hkv, d)), False)
+    vj, vt = _pair(_normal(rng, (b, s, hkv, d)), False)
+    lens = np.asarray(lens, np.int32)
+    ref = jax_decode_attention(qj, kj, vj, jnp.asarray(lens), window=win, softcap=cap)
+    out = decode_attention_kernel(qt, kt, vt, torch.from_numpy(lens), window=win, softcap=cap)
+    rows = split_rows(b, s, hkv, d)
+    split = decode_attention_split_emulation(qt, kt, vt, torch.from_numpy(lens), rows,
+                                             window=win, softcap=cap)
+    assert out.shape == qt.shape and out.dtype == torch.float32
+    _check(f"decode_attention G={hq // hkv} vs decode_attention {case}", _err(ref, out), 2e-5)
+    _check(f"decode split emulation G={hq // hkv} rows={rows} vs decode_attention {case}",
+           _err(ref, split), 2e-5)
+
+
 @pytest.mark.parametrize("s,win", [(100, None), (37, 16), (129, None)])
 def test_flash_ragged_length_vs_attention_ref(s, win):
     """Lengths off any block size (the engine's unbucketed prefill)."""
