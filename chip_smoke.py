@@ -15,7 +15,11 @@ nothing of JAX. Phases, each fatal on failure:
              kernel test cases, attention in f32 (max abs 2e-5) and bf16
              (2e-2, and within half a bf16 step of the f32 result plus
              2^-16 max|v|; K1's bf16 path also at ragged lengths with
-             B = 2, S = 37, 100, 300, 511, hd 128 and 64), the SSD scan
+             B = 2, S = 37, 100, 300, 511, hd 128, 64 and 256, at hd 256
+             also as MHA, and with windows that start inside a 64-key
+             tile, with softcap 50; the build fails unless ptxas built
+             K1's tensor-core kernel at hd 64, 128 and 256, each with
+             and without a softcap, with no spill), the SSD scan
              in f32 against the sequential recurrence (5e-3 on y and on
              the state, also at ragged lengths; the CUDA-core kernel),
              its bf16 tensor-core path at B = 2 (S = 8, 64, 65, 300, 512
@@ -39,7 +43,8 @@ nothing of JAX. Phases, each fatal on failure:
              and the wrapper it had on the same inputs, also spun, with
              the host time per call and each launch's device time; K1 at
              head dim 256, gemma2-9b's prefill shape with its window and
-             softcap at S = 512 and 4,608 and gemma-7b's at 512; K2 at
+             softcap at S = 512 and 4,608 and gemma-7b's at 512, it and
+             SDPA also spun; K2 at
              glm4-9b's decode shape, G = 16);
              kernel, plain version and the library
              yardstick where one PyTorch call computes the same function
@@ -143,7 +148,9 @@ nothing of JAX. Phases, each fatal on failure:
              flips printed; internvl2-2b also after 256 frontend rows);
              each MoE's dropped fraction (0 at lossless capacity) and
              expert load; gemma2-9b's 4,608-token prompt past its
-             4096-token window, kernels vs plain; peak memory per arch.
+             4096-token window, kernels vs plain, and its prefill's host
+             time with the kernels and plain; prefill ms per bucket and
+             peak memory per arch.
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound (K1 and K3 once per timed length, K2 at the path's
@@ -182,8 +189,16 @@ FA_CASES = [(2, 256, 4, 2, 64, None, None), (1, 512, 8, 8, 128, 128, 50.0),
             (2, 512, 4, 1, 64, None, 30.0), (1, 256, 2, 2, 32, 100, None),
             (1, 256, 4, 2, 64, None, None)]
 # K1's bf16 path at ragged lengths with B = 2: a partial last tile, and a
-# tensor map that must not read across the batch boundary
-FA_RAGGED = [(2, s, 4, 2, d, None, None) for s in (37, 100, 300, 511) for d in (128, 64)]
+# tensor map that must not read across the batch boundary; at hd 256
+# (gemma) with G = 2 and as MHA, and windows that start inside a 64-key
+# tile and cross tile edges, with softcap 50. An optional eighth item
+# scales q's rows in every second group of 16 (ragged_q): their scores
+# reach the cap, as gemma2's do, so in each 64-row tile two warps cap
+# through tanhf and two through the polynomial (cap_scores)
+FA_RAGGED = [(2, s, 4, hkv, d, None, None) for s in (37, 100, 300, 511)
+             for d, hkv in ((128, 2), (64, 2), (256, 2), (256, 4))] + [
+    (2, 300, 4, 2, 256, 100, 50.0), (2, 511, 4, 4, 256, 70, 50.0),
+    (2, 300, 4, 2, 256, None, 50.0, 40.0), (2, 511, 4, 4, 256, 70, 50.0, 40.0)]
 # K1 timed at internlm2-1.8b's prefill shape (B=1, 16 q / 8 kv heads, hd
 # 128, bf16) at the engine's buckets and its max_len of 1024
 FA_PATH_LENS = (8, 32, 64, 256, 512, 1024)
@@ -216,7 +231,7 @@ DEC_SPLIT_CASES = [(4, 1024, 16, 8, 128, None, None, (1, 1024, 300, 77)),
 # heads, G = 16) at the serve path's lengths
 DEC_PATH_LENS = (1, 1024, 300, 77)
 DEC_FILLS = (1, 64, 256, 512, 1024)
-# K1 timed at head dim 256 (its CUDA-core kernel in bf16): gemma2-9b's
+# K1 timed at head dim 256 (its tensor-core instance in bf16): gemma2-9b's
 # prefill shape (B=1, 16 q / 8 kv heads, the local layers' 4096-token
 # window and softcap 50) at a bucket and at the zoo phase's long prompt,
 # and gemma-7b's (16 q = 16 kv heads, causal, beside SDPA):
@@ -291,6 +306,14 @@ ZOO_LONG = dict(arch="gemma2-9b", tokens=4608, max_len=4672, steps=3)
 def fail(msg: str) -> int:
     print(f"[chip_smoke] FAILED: {msg}", file=sys.stderr)
     return 1
+
+
+def ragged_q(q, qscale: float = 1.0):
+    """q with the rows of every second group of 16 (one warp's rows of a
+    64-row tile) times ``qscale``, rounded back to q's dtype."""
+    import torch
+    odd = (torch.arange(q.shape[1], device=q.device) // 16) % 2 == 1
+    return torch.where(odd[None, :, None, None], q.float() * qscale, q.float()).to(q.dtype)
 
 
 def cuda_ms(fn, iters: int = 20, flush=None, spin: bool = False) -> float:
@@ -400,11 +423,14 @@ def phase_kernels(torch, dev):
                   attention_ref(q.float(), k.float(), v.float(), window=win, softcap=cap),
                   v, tol, f"{dtype} B={b} S={s} Hq={hq} Hkv={hkv} hd={d} window={win} "
                   f"softcap={cap}")
-        for b, s, hq, hkv, d, win, cap in FA_RAGGED if dtype == torch.bfloat16 else ():
+        for b, s, hq, hkv, d, win, cap, *qs in FA_RAGGED if dtype == torch.bfloat16 else ():
             q, k, v = randn((b, s, hq, d), dtype), randn((b, s, hkv, d), dtype), randn((b, s, hkv, d), dtype)
-            check("flash_attention", flash_attention(q, k, v), attention_ref(q, k, v),
-                  attention_ref(q.float(), k.float(), v.float()), v, tol,
-                  f"ragged {dtype} B={b} S={s} Hq={hq} Hkv={hkv} hd={d}")
+            q = ragged_q(q, *qs)
+            check("flash_attention", flash_attention(q, k, v, window=win, softcap=cap),
+                  attention_ref(q, k, v, window=win, softcap=cap),
+                  attention_ref(q.float(), k.float(), v.float(), window=win, softcap=cap), v,
+                  tol, f"ragged {dtype} B={b} S={s} Hq={hq} Hkv={hkv} hd={d} window={win} "
+                  f"softcap={cap}" + (f" q rows x{qs[0]:g}" if qs else ""))
         for b, s, hq, hkv, d, win, cap, clen in DEC_CASES:
             q, kc, vc = randn((b, 1, hq, d), dtype), randn((b, s, hkv, d), dtype), randn((b, s, hkv, d), dtype)
             check("decode_attention",
@@ -473,27 +499,48 @@ def phase_kernels(torch, dev):
                       v, TOL["bfloat16"], f"{arch} path {shape}")
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (
                 q, k.repeat_interleave(hq // hkv, 2), v.repeat_interleave(hq // hkv, 2)))
-            ms = cuda_ms(lambda: flash_attention(q, k, v, window=win, softcap=cap), flush=flush)
-            plain = cuda_ms(lambda: attention_ref(q, k, v, window=win, softcap=cap), flush=flush)
+
+            def fa():
+                return flash_attention(q, k, v, window=win, softcap=cap)
+
             pos = torch.arange(s, device=dev)
             mask = None if win is None else \
                 (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
+
             # SDPA has no softcap: with one it computes another function and
             # is timed as the yardstick only, under its own key
-            sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=mask is None, attn_mask=mask), flush=flush)
+            def sdpa_fn():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=mask is None,
+                                                      attn_mask=mask)
+
+            ms = cuda_ms(fa, flush=flush)
+            plain = cuda_ms(lambda: attention_ref(q, k, v, window=win, softcap=cap), flush=flush)
+            sdpa = cuda_ms(sdpa_fn, flush=flush)
+            # also with the card spun before each start event, so that neither
+            # time holds any of the host's enqueue (the wrapper's checks and
+            # tensor-map encodes, or SDPA's dispatch)
+            dev_ms, sdpa_dev = (cuda_ms(fn, flush=flush, spin=True) for fn in (fa, sdpa_fn))
             pairs = sum(min(i + 1, win or s) for i in range(s))   # visible (q, k) pairs
             ops = 4.0 * hq * 256 * pairs
             b_ms, b_by = bound(nbytes(q, k, v, q), ops, BF16_FLOPS)
-            f32_ms = bound(nbytes(q, k, v, q), ops, F32_FLOPS)[0]
             print(f"[kernels] flash_attention {arch} path {shape}: err {e:.3g} kernel "
-                  f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa{' without the softcap' if cap else ''} "
-                  f"{sdpa:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {f32_ms:.4f} ms at the CUDA "
-                  f"cores' {F32_FLOPS / 1e12:.0f} TFLOP/s)")
+                  f"{ms:.4f} ms (spun {dev_ms:.4f}), plain {plain:.4f} ms, "
+                  f"sdpa{' without the softcap' if cap else ''} {sdpa:.4f} ms (spun "
+                  f"{sdpa_dev:.4f}), bound {b_ms:.4f} ms ({b_by})")
             rows[("flash_attention", arch, s)] = dict(
-                max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None if cap else sdpa, cuda_core_bound_ms=f32_ms, shape=shape,
-                **({"sdpa_without_softcap_ms": sdpa} if cap else {}))
+                max_abs_err=e, ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None if cap else sdpa, shape=shape,
+                **({"sdpa_without_softcap_ms": sdpa, "sdpa_without_softcap_device_ms": sdpa_dev}
+                   if cap else {"library_device_ms": sdpa_dev}))
+    # what the softcap costs K1 at S=4,608 (B=1, 16 q / 8 kv heads, causal):
+    # hd 128 caps through tanhf of a quotient, hd 256 through cap_scores
+    for d in (128, 256):
+        q = randn((1, 4608, 16, d), torch.bfloat16)
+        k, v = randn((1, 4608, 8, d), torch.bfloat16), randn((1, 4608, 8, d), torch.bfloat16)
+        capped, plain_cap = (cuda_ms(lambda c=c: flash_attention(q, k, v, softcap=c), flush=flush,
+                                     spin=True) for c in (50.0, None))
+        print(f"[kernels] flash_attention softcap cost B=1 S=4608 Hq=16 Hkv=8 hd={d} bf16: "
+              f"softcap 50 {capped:.4f} ms, none {plain_cap:.4f} ms (spun)")
     rows.update(check_decode(torch, dev, randn, err, flush))
     rows.update(check_decode(torch, dev, randn, err, flush, hq=32, hkv=2, fills=(),
                              label="glm4-9b"))
@@ -1800,7 +1847,11 @@ def zoo_long_prompt(torch, dev, cfg, params, spec=ZOO_LONG):
     ``spec["tokens"]`` tokens (numpy seed 0) through ``M.prefill`` and
     ``spec["steps"]`` teacher-forced ``decode_step``s in a cache of
     ``spec["max_len"]`` rows, kernels against plain versions (K1's
-    window masks keys 4096 back in the prefill, K2's in each decode)."""
+    window masks keys 4096 back in the prefill, K2's in each decode).
+    Then the prompt's prefill alone, with the kernels and plain, in
+    turns, on the host clock (synced): the fastest of two each."""
+    from repro_torch.models import model as M
+
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, cfg.vocab_size, spec["tokens"]).astype(np.int32)
     forced = rng.integers(0, cfg.vocab_size, spec["steps"]).tolist()
@@ -1816,6 +1867,16 @@ def zoo_long_prompt(torch, dev, cfg, params, spec=ZOO_LONG):
           f"kernel launches {ran}; {time.perf_counter() - t0:.1f} s")
     if not max(rel) < MODEL_REL_TOL:
         raise AssertionError(f"{cfg.name}: the long prompt's logits with kernels disagree: {rel}")
+    toks, ms = torch.as_tensor(prompt, device=dev)[None], {}
+    for impl in ("auto", "ref", "ref", "auto"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        M.prefill(cfg, params, toks, spec["max_len"], impl=impl, cache_dtype=torch.float32)
+        torch.cuda.synchronize()
+        ms.setdefault(impl, []).append((time.perf_counter() - t1) * 1e3)
+    print(f"[zoo] {cfg.name}: prefill of the {spec['tokens']}-token prompt (host clock, "
+          f"synced, fastest of 2): kernels {min(ms['auto']):.2f} ms, plain "
+          f"{min(ms['ref']):.2f} ms")
 
 
 def phase_zoo(torch, dev):
@@ -1838,9 +1899,9 @@ def phase_zoo(torch, dev):
     unpinned errors and the routing flips printed beside them:
     ``kernels_vs_plain``); an MoE prefill drops an assignment (lossless
     capacity); gemma2-9b's long prompt (``zoo_long_prompt``) disagrees.
-    Prints each arch's tokens/s, decode ms, peak device memory, seconds,
-    and each MoE's dropped fraction and expert load. Returns the launch
-    counts summed over the timed passes."""
+    Prints each arch's tokens/s, prefill ms per bucket, decode ms, peak
+    device memory, seconds, and each MoE's dropped fraction and expert
+    load. Returns the launch counts summed over the timed passes."""
     from repro_torch.configs import get_config
     from repro_torch.models.params import init_params, layer_period, num_groups, slot_kind
     from repro_torch.serve.engine import Request, ServeEngine
@@ -1912,6 +1973,8 @@ def phase_zoo(torch, dev):
               f"tokens the timed pass's: {[r.out_tokens for r in checked] == [r.out_tokens for r in reqs]}")
         if not all(r.done and len(r.out_tokens) == spec["max_new"] for r in checked + reqs):
             raise AssertionError(f"{arch}: not every request finished with {spec['max_new']} tokens")
+        print(f"[zoo] {arch}: prefill ms per length (bucket): " + ", ".join(
+            f"{b}: {np.mean(v):.2f} (n={len(v)})" for b, v in sorted(eng.prefill_ms.items())))
         if launches != expect:
             raise AssertionError(f"{arch} launches {launches}, not one per attention layer and "
                                  f"request or decode step: {expect}")
@@ -2056,6 +2119,11 @@ def main() -> int:
     print("[build] flash_attention wgmma kernel: " + ", ".join(
         f"hd {hd}{' softcap' if cap == '1' else ''}: {r} registers, {sp} bytes spilled"
         for hd, cap, sp, r in wg))
+    # every bf16 head dim of the model zoo on the tensor cores, none spilled
+    if sorted((int(hd), cap) for hd, cap, _, _ in wg) != [
+            (hd, cap) for hd in (64, 128, 256) for cap in "01"] or any(int(sp) for _, _, sp, _ in wg):
+        raise AssertionError(f"flash_attention's wgmma instances are not hd 64, 128 and 256 "
+                             f"with and without a softcap, each unspilled: {wg}")
 
     # 3. kernels
     lap("device and build")

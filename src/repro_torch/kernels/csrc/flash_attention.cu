@@ -11,8 +11,9 @@
 // Layout: q (B,S,Hq,hd), k/v (B,S,Hkv,hd), out (B,S,Hq,hd), all
 // contiguous, f32 or bf16; softmax and sums in f32. hd <= 256 and
 // hd % 4 == 0. Two paths, chosen by dtype and head dim:
-//  - bf16 with hd 64 or 128 (the model's prefill): wgmma fed by TMA
-//    (fa_fwd_wgmma_kernel, below);
+//  - bf16 with hd 64, 128 or 256 (the models' prefill: internlm2 and most
+//    of the zoo at 128, musicgen at 64, gemma-7b and gemma2-9b at 256):
+//    wgmma fed by TMA (fa_fwd_wgmma_kernel, below);
 //  - f32 (which must meet 2e-5, out of reach of bf16 or TF32 products)
 //    and other head dims: f32 FMAs on the CUDA cores (fa_fwd_kernel): 4
 //    threads a q row, K/V staged as f32 in tiles of 32 rows, q scaled by
@@ -39,8 +40,10 @@
 //    the function taken once through the runtime's entry-point query
 //    (cudaGetDriverEntryPoint), so the library links no -lcuda;
 //  - S = Q Kᵀ is wgmma m64n64k16 with Q's A fragments in registers
-//    (loaded once) and K K-major from the swizzled boxes; O += P V is
-//    wgmma m64nHDk16 with P from registers and V read MN-major straight
+//    (loaded once; at hd 256 they would be 64 registers a thread beside
+//    O's 128, so there wgmma reads Q from its shared-memory boxes, A and B
+//    both through descriptors) and K K-major from the swizzled boxes; O +=
+//    P V is wgmma m64nHDk16 with P from registers and V read MN-major straight
 //    from its TMA boxes (no transpose of V anywhere). P is not rounded to
 //    bf16 once, which the TPU kernel (P in f32) would not do: it is split
 //    into a bf16 high part and a bf16 residual, two wgmma per 16 keys,
@@ -54,9 +57,20 @@
 //  - the causal and window bounds limit each q tile's walk to the key
 //    tiles it can see; the output leaves through shared memory in 16-byte
 //    stores along whole rows.
-// ptxas -v (nvcc 12.9, sm_90a): the wgmma kernel takes 193 registers at
-// hd 128 (195 with a softcap) and 138 at hd 64, with no spills; with
-// 160 threads and 112 KB of shared memory at hd 128, two CTAs fit an SM.
+// At hd 256 (gemma) a 64-row tile of q, k or v is four boxes (32 KB): the
+// q tile and 3 K/V stages take 230,400 bytes of shared memory, one CTA an
+// SM (2 stages, 164,864 bytes, took 17-26% longer at gemma's shapes on an
+// H100 SXM at 700 W).
+// O += P V is m64n256k16 over the whole head dim, and the softcap's tanh
+// there is a polynomial (cap_scores): tanhf of a quotient, as hd <= 128
+// computes it, kept the softmax longer than P V. A key tile's tensor work
+// (Q Kᵀ 2.1 MFLOP, P V 4.2 with the residual) reads 128 KB of shared
+// memory beside the 64 KB that TMA writes, so shared memory bounds a tile
+// as closely as the tensor cores do.
+// ptxas -v (nvcc 12.9, sm_90a): the wgmma kernel takes 223 registers at
+// hd 256 (255 with a softcap), 193 at hd 128 (195) and 138 at hd 64, with
+// no spills; with 160 threads and 112 KB of shared memory at hd 128, two
+// CTAs fit an SM.
 #include "hopper.cuh"
 
 namespace repro {
@@ -171,24 +185,38 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
-// bf16 path on the tensor cores (hd 64 or 128): wgmma fed by TMA (see the
+// bf16 path on the tensor cores (hd 64, 128, 256): wgmma fed by TMA (see the
 // note at the top), built from hopper.cuh's barriers, TMA loads and wgmma.
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int TK = 64;                               // keys per K/V tile
-constexpr int STAGES = 3;                            // K/V tiles in the ring
-
-// S = Q Kᵀ for one 64-key tile: hd / 16 steps of m64n64k16, Q from
-// registers, K K-major in shared memory (a step moves 32 bytes along a
-// 128-byte row, or to the next 64-column box)
+// K/V tiles in the ring; at hd 256 a stage (K + V) is 64 KB, so 3 stages
+// and the q tile take 230,400 bytes of the 232,448 a block may have
+constexpr int STAGES = 3;
+// Q's A fragments stay in registers up to hd 128 (32 a thread); at hd 256
+// they would be 64, and with O (128), S (32) and P (32) pass the 255 a
+// thread may have, so wgmma reads Q from its shared-memory boxes instead
 template <int HD>
-__device__ __forceinline__ void start_qk(float (&s)[32], const uint32_t (&qa)[HD / 16][4],
-                                         uint32_t k_smem) {
+__host__ __device__ constexpr bool q_from_smem() { return HD > 128; }
+template <int HD>
+__host__ __device__ constexpr int qa_steps() { return q_from_smem<HD>() ? 1 : HD / 16; }
+
+// S = Q Kᵀ for one 64-key tile: hd / 16 steps of m64n64k16, K K-major in
+// shared memory (a step moves 32 bytes along a 128-byte row, or to the
+// next 64-column box); Q from registers (qa) or, at hd 256, K-major from
+// the q tile's boxes at the same offsets (q_smem)
+template <int HD>
+__device__ __forceinline__ void start_qk(float (&s)[32], const uint32_t (&qa)[qa_steps<HD>()][4],
+                                         uint32_t q_smem, uint32_t k_smem) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
-    wgmma_rs_n64_k(s, qa[kk], sw128_desc(k_smem + off, 16, 1024), kk > 0);
+    const uint64_t kd = sw128_desc(k_smem + off, 16, 1024);
+    if constexpr (q_from_smem<HD>())
+      wgmma_ss_n64_k(s, sw128_desc(q_smem + off, 16, 1024), kd, kk > 0);
+    else
+      wgmma_rs_n64_k(s, qa[kk], kd, kk > 0);
   }
 }
 
@@ -201,7 +229,10 @@ __device__ __forceinline__ void start_pv(float (&acc)[HD / 2], const uint32_t (&
 #pragma unroll
   for (int kk = 0; kk < TK / 16; ++kk) {
     const uint64_t d = sw128_desc(v_smem + kk * 16 * 128, BOX_BYTES, 1024);
-    if constexpr (HD == 128) {
+    if constexpr (HD == 256) {
+      wgmma_rs_n256(acc, ph[kk], d);
+      wgmma_rs_n256(acc, pl[kk], d);
+    } else if constexpr (HD == 128) {
       wgmma_rs_n128(acc, ph[kk], d);
       wgmma_rs_n128(acc, pl[kk], d);
     } else {
@@ -217,6 +248,37 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// A tile's scores, capped and taken to the log2 domain in place:
+// softcap·tanh(s·sl / softcap)·log2 e. tanh is an odd polynomial in y
+// (least squares in y², within 1e-7 of tanh, relative, for |y| <= 0.75:
+// scores up to 0.75 softcap) when every score of the warp lies in that
+// range, else tanhf; the scale and the division by softcap are one product
+__device__ __forceinline__ void cap_scores(float (&s)[32], float sl, float softcap) {
+  const float inv = sl / softcap, cl = softcap * LOG2E;
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    s[j] *= inv;
+    amax = fmaxf(amax, fabsf(s[j]));
+  }
+  if (__all_sync(0xffffffffu, amax <= 0.75f)) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const float z = s[j] * s[j];
+      float p = fmaf(0.0017231611f, z, -0.0076317866f);
+      p = fmaf(p, z, 0.0214339f);
+      p = fmaf(p, z, -0.05388652f);
+      p = fmaf(p, z, 0.1333259f);
+      p = fmaf(p, z, -0.33333308f);
+      p = fmaf(p, z, 1.f);
+      s[j] = cl * (s[j] * p);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = cl * tanhf(s[j]);
+  }
+}
+
 // One tile's scores to softmax weights, in place. s is the wgmma
 // accumulator: s[4n + e] is row r0 (e < 2) or r0 + 8, key k0 + 8n + 2t +
 // (e & 1). Without a cap the scores stay raw and sl = scale·log2 e enters
@@ -224,13 +286,16 @@ __device__ __forceinline__ float ex2(float x) {
 // taken to the log2 domain first, in f32. Keys a row may not see (lo[i]
 // < kj < hi[i] is seen) are masked only in tiles that hold some. m: the
 // running row maxima (log2 domain); l: the thread's partial row sums; c:
-// the factors that rescale the output.
-template <bool CAP>
+// the factors that rescale the output. POLY caps through cap_scores (the
+// hd-256 instances), else through apply_softcap's tanhf of a quotient.
+template <bool CAP, bool POLY>
 __device__ __forceinline__ void tile_softmax(float (&s)[32], int k0, int t, bool masked,
                                              const int (&lo)[2], const int (&hi)[2], float sl,
                                              float softcap, float (&m)[2], float (&l)[2],
                                              float (&c)[2]) {
-  if (CAP) {
+  if (CAP && POLY) {
+    cap_scores(s, sl, softcap);
+  } else if (CAP) {
 #pragma unroll
     for (int j = 0; j < 32; ++j) s[j] = apply_softcap(s[j] * sl, softcap) * LOG2E;
   }
@@ -375,23 +440,25 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint32_t ph[4][4], pl[4][4];
 
   mbar_wait(qbar, 0);
-  uint32_t qa[HD / 16][4];                             // Q as A fragments, per 16 columns
+  uint32_t qa[qa_steps<HD>()][4];                      // Q as A fragments, per 16 columns
+  if constexpr (!q_from_smem<HD>()) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < HD / 16; ++kk)
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const uint32_t addr =
-          sq + sw128_offset(warp * 16 + g + 8 * (a & 1), 16 * kk + 2 * t + 8 * (a >> 1));
-      asm volatile("ld.shared.b32 %0, [%1];" : "=r"(qa[kk][a]) : "r"(addr) : "memory");
-    }
+      for (int a = 0; a < 4; ++a) {
+        const uint32_t addr =
+            sq + sw128_offset(warp * 16 + g + 8 * (a & 1), 16 * kk + 2 * t + 8 * (a >> 1));
+        asm volatile("ld.shared.b32 %0, [%1];" : "=r"(qa[kk][a]) : "r"(addr) : "memory");
+      }
+  }
 
   // tile 0's scores and weights
   mbar_wait(full, 0);
-  start_qk<HD>(s, qa, ring);
+  start_qk<HD>(s, qa, sq, ring);
   wgmma_commit();
   wgmma_wait<0>();
   reg_fence(s);
-  tile_softmax<CAP>(s, key0(0), t, masked(0), lo, hi, sl, softcap, m, l, c);
+  tile_softmax<CAP, HD == 256>(s, key0(0), t, masked(0), lo, hi, sl, softcap, m, l, c);
   split_p(s, ph, pl);
   // tile j: its Q Kᵀ runs while the output is rescaled; then tile j - 1's
   // P V runs while tile j's softmax does, in its f32 score registers; once
@@ -399,14 +466,14 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int j = 1; j < ntiles; ++j) {
     const int st = j % STAGES, pst = (j - 1) % STAGES;
     mbar_wait(full + 8 * st, (j / STAGES) & 1);
-    start_qk<HD>(s, qa, ring + st * 2 * TILE);
+    start_qk<HD>(s, qa, sq, ring + st * 2 * TILE);
     wgmma_commit();
     rescale<HD>(acc, c);
     start_pv<HD>(acc, ph, pl, ring + pst * 2 * TILE + TILE);
     wgmma_commit();
     wgmma_wait<1>();
     reg_fence(s);
-    tile_softmax<CAP>(s, key0(j), t, masked(j), lo, hi, sl, softcap, m, l, c);
+    tile_softmax<CAP, HD == 256>(s, key0(j), t, masked(j), lo, hi, sl, softcap, m, l, c);
     wgmma_wait<0>();
     reg_fence(acc);
     reg_fence(ph);
@@ -427,9 +494,10 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] = __frcp_rn(fmaxf(l[i], 1e-30f));            // a row with no visible key gives 0
   }
-  // the output tile through the q tile's shared memory (Q has been in
-  // registers since the start), then out in 16-byte pieces along whole
-  // rows; rows past S are not written
+  // the output tile through the q tile's shared memory (Q is read no
+  // more: its wgmma are done in every warp once the barrier passes), then
+  // out in 16-byte pieces along whole rows; rows past S are not written
+  if constexpr (q_from_smem<HD>()) asm volatile("bar.sync 1, %0;" :: "n"(WG) : "memory");
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) {
 #pragma unroll
@@ -521,6 +589,9 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
   if (dtype == 1 && hd == 128)
     return softcap > 0.f ? repro::launch_wgmma<128, true>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale, softcap, st)
                        : repro::launch_wgmma<128, false>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale, softcap, st);
+  if (dtype == 1 && hd == 256)
+    return softcap > 0.f ? repro::launch_wgmma<256, true>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale, softcap, st)
+                       : repro::launch_wgmma<256, false>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale, softcap, st);
   if (dtype == 1)
     return repro::dispatch_hd<__nv_bfloat16>(q, k, v, o, B, S, Hq, Hkv, hd, causal, window, scale, softcap, st);
   return cudaErrorInvalidValue;

@@ -57,17 +57,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              softcap=softcap).to(q.dtype)
     _check(q, k, v, window, softcap)
     refuse_grad("flash_attention", q, k, v)
+    if q.device.index != torch.cuda.current_device():    # launch from q's device
+        with torch.cuda.device(q.device):
+            return flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
     b, s, hq, d = q.shape
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _build.library("flash_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             out.data_ptr(), DTYPES[q.dtype], b, s, hq,
-                             k.shape[2], d, int(causal), window or 0,
-                             1.0 / (d ** 0.5), softcap or 0.0, stream)
+    # the raw handle: torch.cuda.current_stream(...).cuda_stream builds a
+    # Stream object, and a torch.cuda.device block costs as much again:
+    # several us of host time each, on every layer of a prefill
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    err = _build.library("flash_attention").fa_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPES[q.dtype], b, s, hq,
+        k.shape[2], d, int(causal), window or 0, 1.0 / (d ** 0.5), softcap or 0.0, stream)
     _build.check(err, "flash_attention launch")
     flash_attention.launches += 1
     return out

@@ -234,8 +234,8 @@ def test_kernels_match_plain_versions_on_card():
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     # (S, window, softcap, head dim, kv heads of the 4 q heads): hd 256 is
-    # gemma's, on the CUDA-core kernel in bf16 too, with gemma2's window
-    # and softcap (G = 2) and as MHA (gemma-7b, G = 1)
+    # gemma's, on the tensor cores in bf16 too, with gemma2's window and
+    # softcap (G = 2) and as MHA (gemma-7b, G = 1)
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         for s, win, cap, d, hkv in ((256, None, None, 64, 2), (100, 32, 30.0, 64, 2),
                                     (300, 96, 50.0, 256, 2), (130, None, None, 256, 4)):
@@ -256,18 +256,25 @@ def test_kernels_match_plain_versions_on_card():
                 excess = (out.float() - r32).abs() - torch.ldexp(torch.ones_like(r32), e - 9)
                 assert excess.max().item() <= 2.0 ** -16 * v.float().abs().max().item()
     # the bf16 tensor-core path at ragged lengths with B=2: a partial last
-    # tile, and tensor maps that must not read across the batch boundary
-    for s in (37, 100, 300, 511):
-        for d in (128, 64):
-            q, k, v = (torch.randn((2, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
-                       for h in (4, 2, 2))
-            out = flash_attention(q, k, v)
-            torch.cuda.synchronize()
-            assert (out.float() - attention_ref(q, k, v).float()).abs().max().item() < 2e-2
-            r32 = attention_ref(q.float(), k.float(), v.float())
-            _, e = torch.frexp(torch.maximum(out.float().abs(), r32.abs()))
-            excess = (out.float() - r32).abs() - torch.ldexp(torch.ones_like(r32), e - 9)
-            assert excess.max().item() <= 2.0 ** -16 * v.float().abs().max().item()
+    # tile, and tensor maps that must not read across the batch boundary;
+    # at hd 256 also as MHA, and windows that start inside a 64-key tile
+    # with softcap 50, some q rows' scores at the cap (chip_smoke.py's
+    # FA_RAGGED)
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for b, s, hq, hkv, d, win, cap, *qs in smoke.FA_RAGGED:
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
+                   for h in (hq, hkv, hkv))
+        q = smoke.ragged_q(q, *qs)
+        out = flash_attention(q, k, v, window=win, softcap=cap)
+        torch.cuda.synchronize()
+        ref = attention_ref(q, k, v, window=win, softcap=cap)
+        assert (out.float() - ref.float()).abs().max().item() < 2e-2, (s, d, hkv, win)
+        r32 = attention_ref(q.float(), k.float(), v.float(), window=win, softcap=cap)
+        _, e = torch.frexp(torch.maximum(out.float().abs(), r32.abs()))
+        excess = (out.float() - r32).abs() - torch.ldexp(torch.ones_like(r32), e - 9)
+        assert excess.max().item() <= 2.0 ** -16 * v.float().abs().max().item()
     q = torch.randn((3, 1, 8, 128), generator=gen, device=dev).to(torch.bfloat16)
     kc, vc = (torch.randn((3, 256, 2, 128), generator=gen, device=dev) for _ in range(2))
     lens = torch.tensor([1, 256, 0], device=dev)
@@ -280,9 +287,6 @@ def test_kernels_match_plain_versions_on_card():
     # DEC_SPLIT_CASES (G = 8 and 16, an f32 cache under a bf16 q),
     # per-row lengths, in f32 and bf16 (2e-5, 2e-2, and within half a
     # bf16 step of the f32 result plus 2^-16 max|v|)
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         for b, s, hq, hkv, d, win, cap, lengths, *cache in smoke.DEC_SPLIT_CASES:
             cdt = getattr(torch, cache[0]) if cache else dtype

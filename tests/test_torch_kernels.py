@@ -64,6 +64,33 @@ def test_flash_plain_vs_pallas(case):
            2e-2 if bf16 else 2e-5)
 
 
+# K1 at head dim 256 (B, S, Hq, Hkv, window, softcap, q scale, dtype):
+# gemma2-9b's shape cut to size (G = 2, a window shorter than S that
+# starts inside a 64-key block, softcap 50) and gemma-7b's (MHA, causal).
+# The q scale multiplies the rows of every second group of 16, so that
+# their scores reach the softcap, as gemma2's logits do
+HD256_CASES = [(1, 256, 4, 2, 100, 50.0, 1.0, dt) for dt in (jnp.float32, jnp.bfloat16)] + [
+    (1, 256, 4, 4, None, None, 1.0, dt) for dt in (jnp.float32, jnp.bfloat16)] + [
+    (1, 256, 4, 2, 100, 50.0, 40.0, dt) for dt in (jnp.float32, jnp.bfloat16)]
+
+
+@pytest.mark.parametrize("case", HD256_CASES)
+def test_flash_hd256_plain_vs_pallas(case):
+    b, s, hq, hkv, win, cap, qs, dt = case
+    bf16 = dt == jnp.bfloat16
+    rng = np.random.default_rng(5)
+    q = _normal(rng, (b, s, hq, 256))
+    q[:, (np.arange(s) // 16) % 2 == 1] *= qs
+    qj, qt = _pair(q, bf16)
+    kj, kt = _pair(_normal(rng, (b, s, hkv, 256)), bf16)
+    vj, vt = _pair(_normal(rng, (b, s, hkv, 256)), bf16)
+    ref = jax_flash(qj, kj, vj, causal=True, window=win, softcap=cap, q_block=64, kv_block=64)
+    out = flash_attention(qt, kt, vt, causal=True, window=win, softcap=cap)
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    _check(f"flash_attention hd 256 vs Pallas {case[:-1]} {np.dtype(dt).name}", _err(ref, out),
+           2e-2 if bf16 else 2e-5)
+
+
 @pytest.mark.parametrize("case", DEC_CASES)
 def test_decode_plain_vs_pallas(case):
     b, s, hq, hkv, d, win, cap, clen = case
@@ -252,7 +279,7 @@ def test_flash_ragged_length_vs_attention_ref(s, win):
     _check(f"flash_attention ragged S={s} window={win} vs attention_ref", _err(ref, out), 2e-5)
 
 
-@pytest.mark.parametrize("s,d", [(s, d) for s in (37, 100, 300, 511) for d in (128, 64)])
+@pytest.mark.parametrize("s,d", [(s, d) for s in (37, 100, 300, 511) for d in (128, 64, 256)])
 def test_flash_ragged_batch_bf16_vs_attention_ref(s, d):
     """The card's ragged cases for the bf16 tensor-core path (B=2, a
     partial last tile, two q heads per kv head), here on the plain path."""
