@@ -150,15 +150,44 @@ nothing of JAX. Phases, each fatal on failure:
              expert load; gemma2-9b's 4,608-token prompt past its
              4096-token window, kernels vs plain, and its prefill's host
              time with the kernels and plain; prefill ms per bucket and
-             peak memory per arch.
+             peak memory per arch;
+9. dist     - the multi-device path as 4 SPMD ranks spawned on the one
+             card (``repro_torch.parallel.ranks``: gloo through host
+             memory, not NVLink; 600 s for the run and each collective):
+             (a) the bidirectional all-gather (exact), the hierarchical
+             all-reduce (4x within 1e-5 relative) and the int8 ring over
+             pods (2x within 0.02) on one full-width internlm2 layer's
+             w_in gradient, 2048 x 2 x 8192 f32, on (pod 2, data 2);
+             (b) full-width internlm2-1.8b served with its 4,096-row KV
+             cache split on the sequence over (data 4): each rank
+             prefills a seeded 300-token prompt through K1 and keeps its
+             quarter, then 16 greedy ``decode_step``s with
+             ``cp_axis="data"``; layer 0's CP attention against the local
+             decode in f32 (1e-4), and the logits against the one-rank
+             path (prefill K1, decode K2, teacher-forced) within
+             MODEL_REL_TOL; (c) one granite-moe-1b-a400m MoE layer at full
+             width, expert-parallel on (data 2, model 2) with the FSDP
+             gathers, B=4 S=512, lossless, against the dense f32 oracle
+             (5e-2, dropped 0); (d) internlm2 cut to 2 layers, batch 8 x
+             512, int8 moments, one step with ``pod_sync="auto"`` and one
+             ``"compressed"`` from the same params on (pod 2, data 2): the
+             synced grads of the ring against the exact mean within 2
+             int8 steps of each leaf's largest |grad| and the grad norm
+             rel 1e-2; the exact mean against one rank's step on the
+             whole batch, each leaf rel 4e-2 by norm; loss
+             rel 1e-3, params 5e-3; (e) (d)'s params resharded from
+             ``best_mesh_for(4, model=2)`` to ``best_mesh_for(2,
+             model=2)``, bit-equal. "[dist]" lines give each figure with
+             the card, and the host-staged and ring bytes.
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound (K1 and K3 once per timed length, K2 at the path's
 lengths and once per fill; K1's and K2's rows also carry the staged
 runs' launches, ``staged_launches``, K4a's and K4b's the train_cluster
 failure run's, ``cluster_launches``, every row the colocate phase's
-four runs' together, ``colocate_launches``, and the zoo phase's timed
-passes', ``zoo_launches``); the last line is
+four runs' together, ``colocate_launches``, the zoo phase's timed
+passes', ``zoo_launches``, and the dist phase's per rank,
+``dist_launches``); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -302,6 +331,27 @@ ZOO = [("glm4-9b", None), ("gemma2-9b", None), ("gemma-7b", None),
 ZOO_SERVE = dict(slots=4, max_len=1024, requests=4, max_new=8, low=8, high=512)
 # gemma2-9b's long prompt: past its local layers' 4096-token window
 ZOO_LONG = dict(arch="gemma2-9b", tokens=4608, max_len=4672, steps=3)
+# the dist phase: 4 SPMD ranks on the one card, gloo through host memory
+DIST = dict(ranks=4, timeout=600.0,
+            # (a) one full-width internlm2 layer's w_in gradient, f32
+            grad_shape=(2048, 2, 8192),
+            # (b) context-parallel serve: cache rows, prompt, decode steps
+            cp_max_len=4096, cp_prompt=300, cp_steps=16,
+            # (c) one MoE layer of granite-moe-1b-a400m at full width
+            moe_arch="granite-moe-1b-a400m", moe_batch=(4, 512),
+            # (d) pod sync: internlm2 cut to 2 layers, batch 8 x 512
+            sync_layers=2, sync_batch=(8, 512))
+DIST_COLL_TOL = dict(hier=10 ** -5, comp=0.02)  # scripts/dist_checks.py:24-42
+DIST_ATTN_TOL = 1e-4                            # dist_checks.py:91, f32
+DIST_MOE_TOL = 5e-2                             # dist_checks.py:66
+# (d): loss and params as dist_checks.py:121-125; the synced grads: the
+# ring against the exact mean in int8 steps of a leaf's largest |grad| (two
+# roundings at two pods, each within half a step of its own scale), the
+# grad norm rel, and the exact mean against the one-rank step on the whole
+# batch, each leaf rel by norm (bf16 compute copies round at other places
+# in a 2-row shard: the limit of every grad held to JAX's), as
+# tests/test_torch_distributed.py holds them
+DIST_SYNC_TOL = dict(loss=1e-3, params=5e-3, int8=2.0, norm=1e-2, exact=4e-2)
 
 def fail(msg: str) -> int:
     print(f"[chip_smoke] FAILED: {msg}", file=sys.stderr)
@@ -1022,9 +1072,12 @@ class PinnedRouting:
     open). ``mode``: "record" keeps each call's expert indices; "compare"
     counts the routed tokens whose top-k set differs from the record's;
     "replay" routes every token to the recorded experts, its weights
-    renormalized from its own router probabilities over them."""
+    renormalized from its own router probabilities over them. ``calls``
+    may also be set from another framework's run (a list of (T,k) index
+    tensors, one per call, in call order)."""
 
-    def __init__(self, torch):
+    def __init__(self):
+        import torch
         from repro_torch.models import moe
         self.torch, self.moe, self.router_topk = torch, moe, moe.router_topk
         self.calls, self.mode, self.at, self.flips, self.routed = [], None, 0, 0, 0
@@ -1044,7 +1097,7 @@ class PinnedRouting:
         if self.mode == "record":
             self.calls.append(idx)
             return weights, idx, probs
-        ref = self.calls[self.at]
+        ref = self.calls[self.at].to(idx.device)
         self.at += 1
         if self.mode == "compare":
             self.routed += idx.shape[0]
@@ -1098,7 +1151,7 @@ def kernels_vs_plain(torch, dev, cfg, params, prompt, forced, max_len, *, bucket
     def rel(auto, ref):
         return ((auto - ref).abs().amax((1, 2)) / ref.abs().amax((1, 2))).tolist()
 
-    with PinnedRouting(torch) as routing:
+    with PinnedRouting() as routing:
         routing.start("record")
         ref = run("ref")
         routing.start("compare")
@@ -2062,6 +2115,358 @@ def profile_train(torch, tr):
           f"host ops in all, {sum(r[1] for r in rows)} device items")
 
 
+def _dist_rank(rank: int, world: int, root: str, card: str) -> dict:
+    """One rank of the dist phase (``phase_dist``), on ``cuda:0`` beside
+    the other ranks. Returns its launch counts, figures and checks, on the
+    host."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core import collectives as C
+    from repro_torch.ft.elastic import best_mesh_for, make_mesh, reshard
+    from repro_torch.kernels.decode_attention.ref import decode_attention
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import decode_attention_context_parallel
+    from repro_torch.models.moe import moe_ffn, moe_ffn_dense_ref
+    from repro_torch.models.params import _logical_only, _moe_shapes, compute_copy, init_params
+    from repro_torch.optim.adamw import adamw_init, tree_leaves, tree_unflatten
+    from repro_torch.parallel.sharding import (CONTEXT_PARALLEL_OVERRIDES, Mesh, full_tensor,
+                                               local_shard, logical_to_spec, use_mesh)
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.train_step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    tag = f"({card}; {world} ranks on one card, gloo through host memory, not NVLink)"
+    lead = rank == 0
+    out = {"checks": {}}
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+
+    def say(msg):
+        if lead:
+            print(f"[dist] {msg} {tag}", flush=True)
+
+    def gen(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    peaks = {}
+
+    def mark(part):
+        """Frees the cache and keeps the most card memory (GiB) this rank
+        held since the last mark."""
+        torch.cuda.empty_cache()
+        peaks[part] = round(torch.cuda.max_memory_allocated(dev) / 2 ** 30, 2)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        b0, s0 = C.host_staged.bytes, C.shift.bytes
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3, C.host_staged.bytes - b0, C.shift.bytes - s0
+
+    # (a) collectives at a gradient's size, on (pod 2, data 2)
+    mesh = Mesh((2, 2), ("pod", "data"), device=dev)
+    x = torch.randn(DIST["grad_shape"], generator=gen(0), device=dev)
+    rows = x.shape[0] // mesh.shape["data"]
+    xs = x[mesh.index("data") * rows:(mesh.index("data") + 1) * rows]
+    coll = {}
+    got, ms, st, ring = timed(lambda: C.all_gather_bidirectional(xs, mesh, "data"))
+    coll["all_gather"] = dict(err=float((got - x).abs().max()), ms=ms, staged=st, ring=ring)
+    del got
+    got, ms, st, ring = timed(lambda: C.all_reduce_hierarchical(x, mesh, "data", "pod"))
+    coll["hierarchical"] = dict(err=float((got - 4 * x).abs().max() / (4 * x).abs().max()),
+                                ms=ms, staged=st, ring=ring)
+    del got
+    got, ms, st, ring = timed(lambda: C.all_reduce_compressed(x, mesh, "pod"))
+    coll["compressed"] = dict(err=float((got - 2 * x).abs().max() / (2 * x).abs().max()),
+                              ms=ms, staged=st, ring=ring)
+    del got, x, xs
+    for name, c in coll.items():
+        say(f"(a) {name} of {DIST['grad_shape']} f32 ({4 * math.prod(DIST['grad_shape']) / 2 ** 20:.0f}"
+            f" MiB): err {c['err']:.3g}, {c['ms']:.1f} ms, host-staged {c['staged']} bytes, "
+            f"ring-sent {c['ring']} bytes")
+    out["coll"] = coll
+    out["checks"]["all_gather exact"] = coll["all_gather"]["err"] == 0.0
+    out["checks"]["hierarchical"] = coll["hierarchical"]["err"] < DIST_COLL_TOL["hier"]
+    out["checks"]["compressed"] = coll["compressed"]["err"] < DIST_COLL_TOL["comp"]
+    mark("a")
+
+    # (b) context-parallel serve of full-width internlm2-1.8b, the cache
+    #     split on the sequence over data
+    mesh = Mesh((world,), ("data",), device=dev)
+    cfg = get_config("internlm2-1.8b")
+    params = None
+    for r in range(world):                  # one f32 init at a time on the card
+        if r == rank:
+            params = compute_copy(init_params(cfg, gen(0), dev))
+            torch.cuda.empty_cache()
+        dist.barrier()
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, DIST["cp_prompt"])
+    toks = torch.as_tensor(prompt, device=dev)[None]
+    with torch.no_grad():
+        logits, cache, npos = M.prefill(cfg, params, toks, DIST["cp_max_len"])   # K1
+        # layer 0 at the full-width shape: CP attention against local decode, f32
+        q = torch.randn((1, 1, cfg.num_heads, cfg.head_dim), generator=gen(1), device=dev)
+        k0, v0 = cache[0]["k"][0].float(), cache[0]["v"][0].float()
+        spec = logical_to_spec(("decode_batch", "kv_seq", "kv_heads", None), mesh,
+                               dim_sizes=k0.shape, overrides=CONTEXT_PARALLEL_OVERRIDES)
+        cp0 = decode_attention_context_parallel(
+            q, local_shard(k0, mesh, spec), local_shard(v0, mesh, spec), torch.tensor(npos),
+            mesh=mesh, axis="data")
+        out["layer0_err"] = float((cp0 - decode_attention(q, k0, v0, npos)).abs().max())
+        del k0, v0
+        local = M.shard_cache(cfg, cache, mesh, "data")
+        del cache
+        torch.cuda.empty_cache()
+        tok = logits[:, -1].argmax(-1)
+        cp_tokens, cp_logits, step_ms = [], [], []
+        b0 = C.host_staged.bytes
+        for i in range(DIST["cp_steps"]):
+            cp_tokens.append(int(tok))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, local = M.decode_step(cfg, params, tok[:, None], local,
+                                          torch.tensor([npos + i], device=dev),
+                                          cp_axis="data", mesh=mesh)
+            tok = logits[:, 0].argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            cp_logits.append(logits[0, 0].float())
+        staged = C.host_staged.bytes - b0
+        del local
+    out["cp_tokens"], out["cp_ms"] = cp_tokens, step_ms
+    # the one-rank path on the same card, teacher-forced on the CP tokens:
+    # prefill (K1) and decode_step (K2) against the whole cache
+    if lead:
+        with torch.no_grad():
+            logits, cache, npos = M.prefill(cfg, params, toks, DIST["cp_max_len"])
+            rel, agree = [], 0
+            for i, t in enumerate(cp_tokens):
+                logits, cache = M.decode_step(cfg, params, torch.tensor([[t]], device=dev),
+                                              cache, torch.tensor([npos + i], device=dev))
+                ref = logits[0, 0].float()
+                rel.append(float((cp_logits[i] - ref).abs().max() / ref.abs().max()))
+                nxt = cp_tokens[i + 1] if i + 1 < len(cp_tokens) else int(cp_logits[i].argmax())
+                agree += int(ref.argmax()) == nxt
+            del cache
+        out["cp_rel"], out["cp_agree"] = rel, agree
+        say(f"(b) context-parallel serve, full-width internlm2-1.8b: prompt {DIST['cp_prompt']}, "
+            f"cache {DIST['cp_max_len']} rows split {world} ways on the sequence, "
+            f"{DIST['cp_steps']} greedy decode steps: {np.median(step_ms):.1f} ms a step "
+            f"(median; first {step_ms[0]:.1f}), host-staged {staged} bytes a rank; "
+            f"layer 0 CP vs local decode (f32) err {out['layer0_err']:.3g} (tol {DIST_ATTN_TOL}); "
+            f"logits vs the one-rank K2 path rel max {max(rel):.3g} (tol {MODEL_REL_TOL}); "
+            f"next-token agreement {agree}/{len(cp_tokens)}")
+        out["checks"]["cp logits"] = max(rel) < MODEL_REL_TOL
+    out["checks"]["cp layer 0"] = out["layer0_err"] < DIST_ATTN_TOL
+    del params, logits, cp_logits
+    mark("b")
+    dist.barrier()
+
+    # (c) expert-parallel MoE: one granite-moe layer at full width on
+    #     (data 2, model 2), each rank's shards, FSDP gathers inside
+    mcfg = get_config(DIST["moe_arch"])
+    mesh = Mesh((2, 2), ("data", "model"), device=dev)
+    d, e, f = mcfg.d_model, mcfg.num_experts, mcfg.d_ff
+    g = gen(2)
+    full = {"router": torch.randn((d, e), generator=g, device=dev) / math.sqrt(d),
+            "w_in": torch.randn((e, d, 2, f), generator=g, device=dev) / math.sqrt(d),
+            "w_out": torch.randn((e, f, d), generator=g, device=dev) / math.sqrt(f)}
+    b, s = DIST["moe_batch"]
+    xm = torch.randn((b, s, d), generator=g, device=dev).to(torch.bfloat16)
+    shards = {k: local_shard(v, mesh, logical_to_spec(_moe_shapes(mcfg)[k][1], mesh,
+                                                      dim_sizes=v.shape))
+              for k, v in full.items()}
+    bspec = logical_to_spec(("batch", None, None), mesh, dim_sizes=xm.shape)
+    xl = local_shard(xm, mesh, bspec)
+    with torch.no_grad():
+        with use_mesh(mesh):
+            (y, met), ms, st, _ = timed(lambda: moe_ffn(
+                xl, shards, num_experts=e, top_k=mcfg.num_experts_per_tok,
+                activation=F.silu, capacity_factor=None))
+        yref = local_shard(moe_ffn_dense_ref(xm.float(), full, num_experts=e,
+                                             top_k=mcfg.num_experts_per_tok,
+                                             activation=F.silu), mesh, bspec)
+    out["moe_err"] = float((y.float() - yref).abs().max())
+    out["moe_dropped"] = float(met.dropped_frac)
+    say(f"(c) expert-parallel MoE, one {DIST['moe_arch']} layer (d_model {d}, {e} experts, "
+        f"top-{mcfg.num_experts_per_tok}, d_ff {f}) at B={b} S={s} on {mesh.shape}, "
+        f"{e // 2} experts a rank: vs dense f32 oracle err {out['moe_err']:.3g} "
+        f"(tol {DIST_MOE_TOL}), dropped {out['moe_dropped']}, {ms:.1f} ms, host-staged {st} bytes")
+    out["checks"]["moe"] = out["moe_err"] < DIST_MOE_TOL and out["moe_dropped"] == 0.0
+    del full, shards, y, yref, xm, xl
+    mark("c")
+
+    # (d) compressed pod sync: internlm2 cut to 2 layers on (pod 2, data 2),
+    #     int8 AdamW moments (K4a, K4b); one step each way from the same
+    #     params. What is only compared (the start params, the auto step's
+    #     params and synced grads) waits in host memory, so a rank holds one
+    #     training state on the card at a time.
+    scfg = dataclasses.replace(cfg, num_layers=DIST["sync_layers"])
+    mesh = Mesh((2, 2), ("pod", "data"), device=dev)
+    p0 = init_params(scfg, gen(0), dev)
+    p0 = tree_unflatten(p0, [p.to("cpu", copy=True) for p in tree_leaves(p0)])
+    b, s = DIST["sync_batch"]
+    tk = torch.randint(0, scfg.vocab_size, (b, s), generator=gen(3), device=dev)
+    batch = {"tokens": tk, "labels": tk, "loss_mask": torch.ones((b, s), device=dev)}
+    res = {}
+    # the synced grads each step hands its optimizer, read by wrapping it:
+    # ``look`` maps them to what is kept; its seconds (``aside``) are taken
+    # out of the step's time
+    adamw, kept, look, aside = TS.adamw_update, [], [None], [0.0]
+
+    def adamw_keeping_grads(grads, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kept.append(look[0](tree_leaves(grads)))
+        torch.cuda.synchronize()
+        aside[0] += time.perf_counter() - t0
+        return adamw(grads, *a, **k)
+
+    def on_card(tree):
+        return tree_unflatten(tree, [p.to(dev, copy=True) for p in tree_leaves(tree)])
+
+    def to_host(leaves):
+        return [g.to("cpu", copy=True) for g in leaves]
+
+    def ring_steps_of(leaves):          # int8 steps of each leaf's largest |exact grad|
+        worst = 0.0
+        for c, a in zip(leaves, auto_g):
+            a = a.to(dev)
+            worst = max(worst, float((c - a).abs().max() / (a.abs().max() / 127)))
+        return worst
+
+    def exact_rel_of(leaves):           # each leaf rel by norm
+        return max(float((a.to(dev) - o).norm() / o.norm()) for a, o in zip(auto_g, leaves))
+
+    TS.adamw_update = adamw_keeping_grads
+    try:
+        for mode, keep in (("auto", to_host), ("compressed", ring_steps_of)):
+            look[0], aside[0] = keep, 0.0
+            run = RunConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10, pod_sync=mode,
+                            moments_int8=True)
+            own = on_card(p0)
+            step = make_train_step(scfg, run, mesh=mesh)
+            opt = adamw_init(own, moments="int8")
+            (own, _, met), ms, st, ring = timed(lambda: step(own, opt, batch, 1))
+            res[mode] = dict(params=own, loss=float(met["loss"]), ms=ms - aside[0] * 1e3,
+                             staged=st, ring=ring, grad_norm=float(met["grad_norm"]))
+            if mode == "auto":
+                auto_g = kept[0]
+                res[mode]["params"] = tree_unflatten(own, to_host(tree_leaves(own)))
+            del opt, own
+            torch.cuda.empty_cache()
+        ring_steps = kept[1]
+        if lead:                            # the exact mean against one rank's whole batch
+            run = RunConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10,
+                            moments_int8=True)
+            own = on_card(p0)
+            look[0] = exact_rel_of
+            make_train_step(scfg, run)(own, adamw_init(own, moments="int8"), batch, 1)
+            exact = kept[2]
+            del own
+        del auto_g
+        kept.clear()
+    finally:
+        TS.adamw_update = adamw
+    torch.cuda.empty_cache()
+    la, lc = res["auto"]["loss"], res["compressed"]["loss"]
+    ga, gc = res["auto"]["grad_norm"], res["compressed"]["grad_norm"]
+    pdiff = max(float((a.to(dev) - c).abs().max()) for a, c in
+                zip(tree_leaves(res["auto"]["params"]), tree_leaves(res["compressed"]["params"])))
+    out["sync"] = dict(loss_rel=abs(la - lc) / abs(la), params=pdiff, ring_steps=ring_steps,
+                       norm_rel=abs(gc - ga) / ga,
+                       **{f"{m}_{k}": res[m][k] for m in res for k in ("loss", "ms", "staged", "ring")})
+    if lead:
+        out["sync"]["exact_rel"] = exact
+        say(f"(d) pod sync, internlm2-1.8b cut to {DIST['sync_layers']} layers, batch {b} x {s} "
+            f"on {mesh.shape}, int8 moments: auto {res['auto']['ms']:.0f} ms (host-staged "
+            f"{res['auto']['staged']} bytes), compressed {res['compressed']['ms']:.0f} ms "
+            f"(host-staged {res['compressed']['staged']} bytes, int8 ring sent "
+            f"{res['compressed']['ring']} bytes); synced grads: ring vs exact mean "
+            f"{ring_steps:.3g} int8 steps (tol {DIST_SYNC_TOL['int8']}), grad norm {gc:.6g} vs "
+            f"{ga:.6g} rel {out['sync']['norm_rel']:.3g} (tol {DIST_SYNC_TOL['norm']}), exact mean "
+            f"vs one rank's whole batch, worst leaf rel by norm {exact:.3g} (tol "
+            f"{DIST_SYNC_TOL['exact']}); loss "
+            f"{la:.6f} vs {lc:.6f} rel {out['sync']['loss_rel']:.3g} (tol "
+            f"{DIST_SYNC_TOL['loss']}), params max diff {pdiff:.3g} (tol {DIST_SYNC_TOL['params']})")
+        out["checks"]["pod sync exact mean"] = exact < DIST_SYNC_TOL["exact"]
+    out["checks"]["pod sync ring"] = ring_steps < DIST_SYNC_TOL["int8"]
+    out["checks"]["pod sync grad norm"] = out["sync"]["norm_rel"] < DIST_SYNC_TOL["norm"]
+    out["checks"]["pod sync"] = (out["sync"]["loss_rel"] < DIST_SYNC_TOL["loss"]
+                                 and pdiff < DIST_SYNC_TOL["params"])
+    params = res["compressed"]["params"]
+    del res, p0
+    mark("d")
+
+    # (e) elastic reshard: (d)'s params from best_mesh_for(4, model=2) to
+    #     best_mesh_for(2, model=2), bit-equal
+    _, logical = _logical_only(scfg)
+    m4 = make_mesh(*best_mesh_for(world, model=2), device=dev)
+    m2 = make_mesh(*best_mesh_for(world // 2, model=2), device=dev)
+    (p2, ms, st, _) = timed(lambda: reshard(reshard(params, logical, m4), logical, m2))
+    if m2.member:
+        same = all(torch.equal(full_tensor(a), b) for a, b in
+                   zip(tree_leaves(p2), tree_leaves(params)))
+    else:
+        same = all(a is None for a in tree_leaves(p2))
+    out["checks"]["reshard bit-equal"] = same
+    say(f"(e) elastic reshard of (d)'s params {m4.shape} -> {m2.shape}: bit-equal {same} on "
+        f"rank 0, {ms:.0f} ms, host-staged {st} bytes")
+    torch.cuda.synchronize()
+    out["launches"] = {name: fn.launches for name, fn in counters.items()}
+    out["staged_bytes"] = C.host_staged.bytes
+    mark("e")
+    out["peak_gib"] = peaks
+    return out
+
+
+def phase_dist(torch, dev, card: str):
+    """The multi-device path: ``DIST["ranks"]`` SPMD ranks spawned on the
+    one card (``repro_torch.parallel.ranks.spawn``: gloo through host
+    memory, a file rendezvous, ``DIST["timeout"]`` s for the whole run and
+    each collective), one process per mesh position. (a) the collectives
+    at a gradient's size; (b) context-parallel serve of full-width
+    internlm2-1.8b; (c) the expert-parallel MoE of granite-moe at full
+    width; (d) the compressed pod sync against the exact one; (e) the
+    elastic reshard. Fails if any rank fails, hangs or a check does not
+    hold. Returns each kernel's launches per rank."""
+    from repro_torch.parallel import ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved(dev) / 2 ** 30
+    t0 = time.perf_counter()
+    got = ranks.spawn(_dist_rank, DIST["ranks"], str(ROOT), card, timeout=DIST["timeout"])
+    wall = time.perf_counter() - t0
+    bad = {f"rank {r}: {k}" for r, g in enumerate(got) for k, ok in g["checks"].items() if not ok}
+    if any(g["cp_tokens"] != got[0]["cp_tokens"] for g in got):
+        bad.add("the ranks' CP tokens differ")
+    launches = {k: [g["launches"][k] for g in got] for k in got[0]["launches"]}
+    peaks = ", ".join(f"({k}) {[g['peak_gib'][k] for g in got]}" for k in "abcde")
+    most = max(sum(g["peak_gib"][k] for g in got) for k in "abcde")
+    print(f"[dist] {DIST['ranks']} ranks in {wall:.1f} s; launches per rank {launches}; "
+          f"host-staged bytes per rank {[g['staged_bytes'] for g in got]}; peak memory (GiB) "
+          f"per part and rank: {peaks}, at most {most:.2f} summed over the ranks of one part; "
+          f"this process keeps {held:.2f} GiB reserved ({card}; gloo through host memory, "
+          "not NVLink)")
+    if not all(n > 0 for n in launches["flash_attention"]) or launches["decode_attention"][0] <= 0 \
+            or not all(n > 0 for n in launches["quantize"] + launches["dequantize"]):
+        bad.add(f"a kernel of the path never launched: {launches}")
+    if bad:
+        raise AssertionError(f"dist phase failed: {sorted(bad)}")
+    return launches
+
+
 def phase_timer():
     """``lap(name)`` prints the seconds since the last lap (the first
     since the script started) and since the script started."""
@@ -2167,6 +2572,12 @@ def main() -> int:
     # 8. zoo: every other arch one card holds, served through K1 and K2
     launches_zoo = phase_zoo(torch, dev)
     lap("zoo")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. dist: SPMD ranks on the card (K1, K2, K4a, K4b)
+    launches_dist = phase_dist(torch, dev, smi[0])
+    lap("dist")
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -2176,6 +2587,7 @@ def main() -> int:
              staged_launches=staged_launches["flash_attention"],
              colocate_launches=launches_coloc["flash_attention"],
              zoo_launches=launches_zoo["flash_attention"],
+             dist_launches=launches_dist["flash_attention"],
              shape=f"B=1 S={s} Hq=16 Hkv=8 hd=128 bf16",
              **rows[("flash_attention", s)])
         for s in FA_PATH_LENS
@@ -2187,6 +2599,7 @@ def main() -> int:
              staged_launches=staged_launches["flash_attention"],
              colocate_launches=launches_coloc["flash_attention"],
              zoo_launches=launches_zoo["flash_attention"],
+             dist_launches=launches_dist["flash_attention"],
              **rows[("flash_attention", arch, s)])
         for arch, _, _, _, _, lens in ZOO_FA_CASES for s in lens
     ] + [
@@ -2197,6 +2610,7 @@ def main() -> int:
              staged_launches=staged_launches["decode_attention"],
              colocate_launches=launches_coloc["decode_attention"],
              zoo_launches=launches_zoo["decode_attention"],
+             dist_launches=launches_dist["decode_attention"],
              **rows[("decode_attention", key)])
         for key in ("path", "glm4-9b path") + DEC_FILLS
     ] + [
@@ -2205,6 +2619,7 @@ def main() -> int:
              replaces="src/repro/kernels/ssd_scan/kernel.py:28",
              launches=launches_ssm["ssd_scan"], colocate_launches=launches_coloc["ssd_scan"],
              zoo_launches=launches_zoo["ssd_scan"],
+             dist_launches=launches_dist["ssd_scan"],
              shape=f"B=1 S={s} H=80 P=64 N=128 bf16",
              **rows[("ssd_scan", s)])
         for s in SSD_PATH_LENS
@@ -2215,14 +2630,16 @@ def main() -> int:
              launches=launches_train["quantize"],
              cluster_launches=launches_cluster["quantize"],
              colocate_launches=launches_coloc["quantize"],
-             zoo_launches=launches_zoo["quantize"], **rows["quantize"]),
+             zoo_launches=launches_zoo["quantize"],
+             dist_launches=launches_dist["quantize"], **rows["quantize"]),
         dict(name="dequantize", route="cuda",
              source="src/repro_torch/kernels/csrc/quant.cu",
              replaces="src/repro/kernels/quant/kernel.py:22",
              launches=launches_train["dequantize"],
              cluster_launches=launches_cluster["dequantize"],
              colocate_launches=launches_coloc["dequantize"],
-             zoo_launches=launches_zoo["dequantize"], **rows["dequantize"]),
+             zoo_launches=launches_zoo["dequantize"],
+             dist_launches=launches_dist["dequantize"], **rows["dequantize"]),
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")):

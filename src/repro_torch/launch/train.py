@@ -1,6 +1,6 @@
 """Training launcher, the port of ``repro/launch/train.py``.
 
-Two modes:
+Three modes:
 
 - local: trains on one device, the card unless ``--device cpu``.
 
@@ -17,6 +17,22 @@ Two modes:
   (``--ckpt-replicas`` chain replicas) and resumes from the newest
   checkpoint there; ``--log`` appends each step's record as JSON. Prints
   a ``[train]`` line per step and a final line.
+- multi-pod: ``--multi-pod`` trains as SPMD ranks, one process per
+  mesh position, on a gloo group: ``--ranks N`` processes started by
+  ``torch.multiprocessing`` (the rendezvous a file in a temporary
+  directory), or the group ``torchrun`` describes in the environment
+  (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``). The mesh
+  is ``best_mesh_for(world, model=min(2, world), prefer_pods=2)``, as
+  the JAX launcher's local mode builds it from the device count; every
+  rank holds the whole params and takes its share of each batch, and
+  ``--pod-sync compressed`` sends the grads across pods through the int8
+  ring. On one card every rank computes on it and the ranks talk over
+  gloo through host memory. Rank 0 prints, logs and checkpoints; every
+  rank resumes from ``--ckpt-dir``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
+        --reduced --device cpu --multi-pod --ranks 4 --pod-sync compressed --steps 3
+
 - simulate: ``--simulate N`` dry-runs the config as N trainer nodes on
   a named fabric (``--fabric``, see ``train/cluster.TRAIN_FABRICS``;
   ``h100`` by default) — no torch work, just the FabricRuntime
@@ -28,24 +44,27 @@ Two modes:
         --shape train_4k --steps 20 --simulate 4 --ckpt-staging soc \\
         --ckpt-every 5 --fail node1:8
 
-The compressed inter-pod gradient ring (``--pod-sync compressed``) and
-``--multi-pod`` need several devices and raise in the local mode; under
-``--simulate --pods`` the pod sync is the simulated policy.
+``--pod-sync compressed`` takes effect with ``--multi-pod`` (a mesh
+with a pod axis); under ``--simulate --pods`` the pod sync is the
+simulated policy.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.ckpt.checkpoint import CheckpointManager
+from repro_torch.ft.elastic import best_mesh_for, make_mesh
 from repro_torch.configs import SHAPES, RunConfig, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.kernels.quant.ops import dequantize, quantize
 from repro_torch.models.params import init_params
 from repro_torch.optim.adamw import adamw_init
+from repro_torch.parallel import ranks as ranks_mod
 from repro_torch.train.train_step import make_train_step
 from repro_torch.train.trainer import Trainer
 
@@ -53,13 +72,81 @@ from repro_torch.train.trainer import Trainer
 REDUCED_SHAPE = (8, 64)
 
 
-def build(cfg, run: RunConfig, device):
-    """Params from seed ``run.seed``, AdamW state and the train step."""
+def build(cfg, run: RunConfig, device, mesh=None):
+    """Params from seed ``run.seed``, AdamW state and the train step (on
+    ``mesh``'s ranks where given: each rank draws the same params)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(run.seed)
     params = init_params(cfg, gen, device)
     opt = adamw_init(params, moments="int8" if run.moments_int8 else "f32")
-    return params, opt, make_train_step(cfg, run)
+    return params, opt, make_train_step(cfg, run, mesh=mesh)
+
+
+def train_loop(cfg, run, shape, args, device, mesh=None, lead: bool = True):
+    """Build, (resume,) train ``args.steps`` steps and print a line per
+    step. ``lead``: this process prints, logs and saves checkpoints
+    (rank 0 of a mesh); the others only restore."""
+    def say(msg):
+        if lead:
+            print(msg, flush=True)
+
+    say(f"[train] {cfg.name} on {device}: batch {shape.global_batch} x seq "
+        f"{shape.seq_len}, microbatch {run.microbatch}, moments "
+        f"{'int8' if run.moments_int8 else 'f32'}, remat {run.remat_policy}"
+        + ("" if mesh is None else f", mesh {mesh.shape} pod_sync {run.pod_sync}"))
+    quantize.launches = dequantize.launches = 0
+    params, opt, step_fn = build(cfg, run, device, mesh)
+    ckpt = None
+    if args.ckpt_dir:
+        ckpt = CheckpointManager(args.ckpt_dir, every=args.ckpt_every if lead else 0,
+                                 replicas=args.ckpt_replicas if lead else 0)
+    tr = Trainer(cfg, run, shape, step_fn=step_fn, params=params, opt_state=opt,
+                 ckpt=ckpt, log_path=(args.log or None) if lead else None)
+    if tr.start_step:
+        say(f"[train] resumed from the checkpoint of step {tr.start_step - 1} "
+            f"in {args.ckpt_dir}")
+    tokens = shape.global_batch * shape.seq_len
+    for _ in range(args.steps - tr.start_step):
+        rec = tr.run_steps(1)
+        say(f"[train] step {rec['step']}: loss {rec['loss']:.4f} lr {rec['lr']:.3g} "
+            f"grad_norm {rec['grad_norm']:.4g} {rec['seconds'] * 1e3:.1f} ms "
+            f"({tokens / rec['seconds']:.1f} tok/s)")
+    if not tr.history:
+        say(f"[train] nothing to do: the checkpoint in {args.ckpt_dir} is at "
+            f"step {tr.start_step - 1} of {args.steps}")
+        return tr
+    last = tr.history[-1]
+    say(f"[train] done: step={last['step']} loss={last['loss']:.4f} "
+        f"({last['seconds'] * 1e3:.0f} ms/step); kernel launches: "
+        f"quantize={quantize.launches} dequantize={dequantize.launches}")
+    return tr
+
+
+def multi_pod_rank(rank: int, world: int, cfg, run, shape, args):
+    """One SPMD rank of ``--multi-pod``: its mesh position, the training
+    loop; returns its losses."""
+    shp, names = best_mesh_for(world, model=min(2, world), prefer_pods=2)
+    mesh = make_mesh(shp, names, device=resolve_device(args.device))
+    if rank == 0:
+        print(f"[train] mesh={mesh.shape} ranks={world} (gloo)", flush=True)
+    tr = train_loop(cfg, run, shape, args, mesh.device, mesh, lead=rank == 0)
+    return [rec["loss"] for rec in tr.history]
+
+
+def multi_pod(cfg, run, shape, args):
+    """``--multi-pod``: under ``torchrun`` this process is one rank of its
+    group; else ``--ranks`` processes are spawned here. Returns rank 0's
+    losses."""
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        world = ranks_mod.init_rank_from_env()
+        try:
+            return multi_pod_rank(int(os.environ["RANK"]), world, cfg, run, shape, args)
+        finally:
+            torch.distributed.destroy_process_group()
+    if args.ranks < 1:
+        raise ValueError(f"--multi-pod needs --ranks >= 1, got {args.ranks}")
+    return ranks_mod.spawn(multi_pod_rank, args.ranks, cfg, run, shape, args,
+                           timeout=None)[0]
 
 
 def simulate(cfg, shape, args):
@@ -188,7 +275,11 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--pod-sync", default="auto", choices=["auto", "compressed"])
-    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="train as SPMD ranks on a gloo group (see the module doc)")
+    ap.add_argument("--ranks", type=int, default=4,
+                    help="--multi-pod: processes to spawn (torchrun's world "
+                         "takes its place)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--ckpt-replicas", type=int, default=0)
@@ -248,9 +339,6 @@ def main(argv=None):
                                 args.batch or shape.global_batch, "train")
         return simulate(cfg, shape, args)
 
-    if args.multi_pod:
-        raise NotImplementedError("--multi-pod needs the multi-device slice of the "
-                                  "port (ROADMAP A6)")
     device = resolve_device(args.device)
     if args.reduced:
         shape = ShapeConfig("reduced", REDUCED_SHAPE[1], REDUCED_SHAPE[0], "train")
@@ -261,35 +349,9 @@ def main(argv=None):
                     warmup_steps=max(2, args.steps // 10),
                     microbatch=args.microbatch, pod_sync=args.pod_sync,
                     ckpt_every=args.ckpt_every, moments_int8=args.moments_int8)
-    print(f"[train] {cfg.name} on {device}: batch {shape.global_batch} x seq "
-          f"{shape.seq_len}, microbatch {run.microbatch}, moments "
-          f"{'int8' if run.moments_int8 else 'f32'}, remat {run.remat_policy}")
-    quantize.launches = dequantize.launches = 0
-    params, opt, step_fn = build(cfg, run, device)
-    ckpt = None
-    if args.ckpt_dir:
-        ckpt = CheckpointManager(args.ckpt_dir, every=args.ckpt_every,
-                                 replicas=args.ckpt_replicas)
-    tr = Trainer(cfg, run, shape, step_fn=step_fn, params=params, opt_state=opt,
-                 ckpt=ckpt, log_path=args.log or None)
-    if tr.start_step:
-        print(f"[train] resumed from the checkpoint of step {tr.start_step - 1} "
-              f"in {args.ckpt_dir}")
-    tokens = shape.global_batch * shape.seq_len
-    for _ in range(args.steps - tr.start_step):
-        rec = tr.run_steps(1)
-        print(f"[train] step {rec['step']}: loss {rec['loss']:.4f} lr {rec['lr']:.3g} "
-              f"grad_norm {rec['grad_norm']:.4g} {rec['seconds'] * 1e3:.1f} ms "
-              f"({tokens / rec['seconds']:.1f} tok/s)")
-    if not tr.history:
-        print(f"[train] nothing to do: the checkpoint in {args.ckpt_dir} is at "
-              f"step {tr.start_step - 1} of {args.steps}")
-        return tr
-    last = tr.history[-1]
-    print(f"[train] done: step={last['step']} loss={last['loss']:.4f} "
-          f"({last['seconds'] * 1e3:.0f} ms/step); kernel launches: "
-          f"quantize={quantize.launches} dequantize={dequantize.launches}")
-    return tr
+    if args.multi_pod:
+        return multi_pod(cfg, run, shape, args)
+    return train_loop(cfg, run, shape, args, device)
 
 
 if __name__ == "__main__":

@@ -6,6 +6,10 @@
   training from 2048 tokens, as in the JAX package.
 - ``decode_attention``  : one-token attention against a KV cache, with a
   scalar or per-row ``(B,)`` cache length (the plain version of K2).
+- ``decode_attention_context_parallel`` : the same with the cache's
+  sequence split over a mesh axis, each rank's partial (m, l, o) merged
+  by a log-sum-exp reduction over the axis (flash-decoding across
+  ranks).
 - ``attention`` / ``decode`` : dispatch between those and the CUDA
   kernels. ``impl="auto"`` takes the kernel for CUDA tensors at every
   length and the plain version for CPU tensors; ``"ref"`` always takes
@@ -16,18 +20,22 @@ Shapes: q (B, Sq, Hq, hd); k/v (B, Skv, Hkv, hd); GQA via Hq % Hkv == 0.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.core.collectives import all_reduce
 from repro_torch.kernels import use_kernel
 from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref, softcap_
+from repro_torch.kernels.flash_attention.ref import (NEG_INF, attention_ref, expand_kv,
+                                                     softcap_)
 
 __all__ = ["NEG_INF", "attention_ref", "attention_blocked", "decode_attention",
-           "attention", "decode", "train_impl"]
+           "decode_attention_context_parallel", "attention", "decode", "train_impl"]
 
 #: JAX's ``attention(impl="auto")`` takes the blocked scan from this length
 BLOCKED_FROM = 2048
@@ -98,6 +106,58 @@ def attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m = m_new
         blocks.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(v.dtype))
     return torch.cat(blocks, dim=2).transpose(1, 2)     # (B, S, Hq, d)
+
+
+def decode_attention_context_parallel(q: torch.Tensor, k_cache: torch.Tensor,
+                                      v_cache: torch.Tensor, cache_len, *, mesh,
+                                      axis: str = "data", window: Optional[int] = None,
+                                      softcap: Optional[float] = None) -> torch.Tensor:
+    """One-token attention against a cache whose sequence dim is split
+    over the mesh axis ``axis`` (``attention.py:184-250``), on this
+    rank's local tensors: q (B,1,Hq,hd) whole, the caches this rank's
+    ``S/n`` rows (B, S/n, Hkv, hd), rank i holding rows [i·S/n, (i+1)·S/n);
+    ``cache_len`` (scalar or (B,)) counts the valid rows of the whole
+    cache. Batch rows split over other axes are the caller's: the merge
+    runs over ``axis`` only.
+
+    Each rank takes its rows' partial (m, l, o) in f32 (an all-masked
+    shard gives l = o = 0), then ``pmax`` of m and one ``psum`` of l·corr
+    and o·corr (one all-reduce of both, the same sums) merge them:
+    out = o / max(l, 1e-30). Serves (a) long-context decode (axis="data")
+    and (b) GQA models whose KV heads do not divide the TP axis
+    (axis="model"). Returns (B,1,Hq,hd) in the cache dtype on every rank.
+
+    Paper mapping: the query visits a remote, sharded value store and
+    the partial results combine, DrTM-KV's multi-path get with the LSE
+    merge as the client-side combine."""
+    b, _, hq, d = q.shape
+    s_local, hkv = k_cache.shape[1], k_cache.shape[2]
+    groups = hq // hkv
+    group = mesh.get_group(axis)
+    idx = dist.get_rank(group)
+    qf = q.float()[:, 0]
+    kf = expand_kv(k_cache, groups).float()
+    vf = expand_kv(v_cache, groups).float()
+    scores = torch.einsum("bhd,bkhd->bhk", qf, kf) / math.sqrt(d)
+    scores = softcap_(scores, softcap)
+    kpos = idx * s_local + torch.arange(s_local, device=q.device)[None, :]
+    clen = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    mask = kpos < clen
+    if window is not None:
+        mask &= kpos >= clen - window
+    scores = torch.where(mask[:, None, :], scores,
+                         torch.tensor(NEG_INF, dtype=scores.dtype, device=q.device))
+    m = scores.amax(dim=-1)                                        # (B,H)
+    # an all-masked shard: exp(NEG_INF - NEG_INF) = 1, zeroed by the mask
+    p = torch.exp(scores - m[..., None]) * mask[:, None, :]
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhk,bkhd->bhd", p, vf)
+    # LSE merge across the shards
+    m_glob = all_reduce(m, group, dist.ReduceOp.MAX)
+    corr = torch.exp(m - m_glob)
+    lo = all_reduce(torch.cat([(l * corr)[..., None], o * corr[..., None]], dim=-1), group)
+    out = lo[..., 1:] / torch.clamp(lo[..., :1], min=1e-30)
+    return out[:, None].to(v_cache.dtype)
 
 
 def train_impl(seq_len: int) -> str:

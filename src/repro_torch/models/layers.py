@@ -1,13 +1,49 @@
 """Shared layer primitives, the counterpart of ``repro/models/layers.py``:
-RMSNorm, RoPE, activations, the gated MLP.
-
-One card, no tensor parallelism: the JAX package's ``row_parallel`` is a
-plain product here.
+RMSNorm, RoPE, activations, the gated MLP and the row-parallel
+projection.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.collectives import all_reduce
+from repro_torch.models import precision
+from repro_torch.parallel.sharding import current_mesh
+
+
+def _contract(x: torch.Tensor, w: torch.Tensor, k0: int) -> torch.Tensor:
+    """x's dims from ``k0`` on against w's dims but the last: (..., K...)
+    x (K..., D) -> (..., D), one matrix product."""
+    return x.reshape(*x.shape[:k0], -1) @ w.reshape(-1, w.shape[-1])
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, x_shard_dim: int,
+                 w_shard_dim: int = 0) -> torch.Tensor:
+    """The tensor-parallel row-parallel product (``layers.py:15-56``):
+    x's dims from ``x_shard_dim`` on contract with w's leading dims, and
+    ``x_shard_dim`` / ``w_shard_dim`` split over the ``model`` axis.
+
+    Under ``precision.bf16_collectives()`` with a ``model`` axis of size
+    n > 1 in ``current_mesh()``, and both split dims and the sequence
+    (x's dim 1) divisible by n, each rank takes its 1/n of x and w (both
+    whole on every rank: the replicated compute outside), multiplies them
+    in f32, sums the partial products over ``model`` once in f32 and
+    rounds the sum to bf16. Otherwise it is the plain product in x's
+    dtype. The mesh path is forward-only: its sum is a gloo collective."""
+    mesh = current_mesh()
+    msize = mesh.shape.get("model", 1) if mesh is not None else 1
+    applicable = (precision.enabled() and msize > 1
+                  and x.shape[x_shard_dim] % msize == 0
+                  and w.shape[w_shard_dim] % msize == 0
+                  and x.shape[1] % msize == 0)
+    if not applicable:
+        return _contract(x, w, x_shard_dim)
+    r = mesh.index("model")
+    kx, kw = x.shape[x_shard_dim] // msize, w.shape[w_shard_dim] // msize
+    part = _contract(x.float().narrow(x_shard_dim, r * kx, kx),
+                     w.float().narrow(w_shard_dim, r * kw, kw), x_shard_dim)
+    return all_reduce(part, mesh.get_group("model")).to(torch.bfloat16)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -49,5 +85,5 @@ def mlp(x: torch.Tensor, params: dict, activation) -> torch.Tensor:
     h = (xc @ params["w_in"].to(torch.bfloat16).reshape(d, 2 * f))
     h = h.unflatten(-1, (2, f))
     h = activation(h[..., 0, :]) * h[..., 1, :]
-    out = h @ params["w_out"].to(torch.bfloat16)
+    out = row_parallel(h, params["w_out"].to(torch.bfloat16), x_shard_dim=2)
     return out.to(x.dtype)

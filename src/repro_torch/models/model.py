@@ -16,6 +16,15 @@ decode the flash-decoding kernel, and SSM prefill the CUDA SSD-scan
 kernel; SSM decode is the one-token recurrence in plain tensor ops, as
 in the JAX package.
 
+Under a mesh (``decode_step``'s ``cp_axis``/``mesh``), each rank holds
+its ``S/n`` rows of every KV cache, split on the sequence over
+``cp_axis``, writes a new token's K/V where its row lies, and merges
+attention across the ranks (``attention.decode_attention_context_parallel``);
+the rest of the step is computed whole on every rank. The projections
+out of the attention, MLP and SSM blocks are ``layers.row_parallel``, as
+in JAX: a plain product unless ``precision.bf16_collectives()`` and a
+``model`` axis ask for the explicit tensor-parallel sum.
+
 Unlike the JAX functions, ``decode_step`` writes the new token's K/V and
 the new SSM states into the cache it is given, in place, and returns
 that same cache: JAX's ``.at[].set`` builds a new array, which on the
@@ -45,7 +54,7 @@ from repro_torch.kernels import use_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import activation_fn, mlp, rmsnorm, rope
+from repro_torch.models.layers import activation_fn, mlp, rmsnorm, rope, row_parallel
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import (check_supported, layer_period,
                                        num_groups, slot_kind)
@@ -144,19 +153,51 @@ def _write_cache(cache: dict, k, v, pos: torch.Tensor) -> None:
             c[bidx, idx] = torch.where(keep, new[:, 0].to(c.dtype), c[bidx, idx])
 
 
+def _write_cache_shard(cache: dict, k, v, pos: torch.Tensor, lo: int, total: int) -> None:
+    """``_write_cache`` on this rank's rows [lo, lo + rows) of a cache of
+    ``total`` rows split on the sequence: the rank whose rows hold a
+    position writes it, the others keep their rows. Positions behave as
+    in ``_write_cache`` against the whole cache (a scalar clamped to the
+    last row, a per-row position past the end dropped)."""
+    rows = cache["k"].shape[1]
+    if pos.dim() == 0:
+        g = pos.reshape(1).long().clamp(0, total - 1)
+        idx = (g - lo).clamp(0, rows - 1)
+        keep = ((g >= lo) & (g < lo + rows)).reshape(1, 1, 1, 1)
+        for name, new in (("k", k), ("v", v)):
+            c = cache[name]
+            c.index_copy_(1, idx, torch.where(keep, new.to(c.dtype), c.index_select(1, idx)))
+    else:
+        bidx = torch.arange(k.shape[0], device=k.device)
+        g = pos.long()
+        idx = (g - lo).clamp(0, rows - 1)
+        keep = ((g >= lo) & (g < lo + rows) & (g <= total - 1))[:, None, None]
+        for name, new in (("k", k), ("v", v)):
+            c = cache[name]
+            c[bidx, idx] = torch.where(keep, new[:, 0].to(c.dtype), c[bidx, idx])
+
+
 def _attention_mixer(cfg: ModelConfig, kind: dict, p: dict, x: torch.Tensor, *,
                      positions, impl: str, cache: Optional[dict] = None,
-                     pos: Optional[torch.Tensor] = None):
+                     pos: Optional[torch.Tensor] = None, cp_axis: Optional[str] = None,
+                     mesh=None):
     window = cfg.window_size if kind["local"] else None
     q, k, v = _project_qkv(cfg, p, x, positions)
     if cache is None:
         out = attn_mod.attention(q, k, v, causal=True, window=window,
                                  softcap=cfg.attn_logit_softcap, impl=impl)
+    elif cp_axis:
+        rows, n = cache["k"].shape[1], mesh.shape[cp_axis]
+        _write_cache_shard(cache, k, v, pos, mesh.index(cp_axis) * rows, rows * n)
+        out = attn_mod.decode_attention_context_parallel(
+            q, cache["k"], cache["v"], pos + 1, mesh=mesh, axis=cp_axis,
+            window=window, softcap=cfg.attn_logit_softcap)
     else:
         _write_cache(cache, k, v, pos)
         out = attn_mod.decode(q, cache["k"], cache["v"], pos + 1, window=window,
                               softcap=cfg.attn_logit_softcap, impl=impl)
-    return _out_proj(p, out, x.dtype)
+    y = row_parallel(out.to(torch.bfloat16), p["wo"].to(torch.bfloat16), x_shard_dim=2)
+    return y.to(x.dtype)
 
 
 def _ssm_inputs(cfg: ModelConfig, p: dict, h: torch.Tensor):
@@ -233,11 +274,15 @@ def _ssm_step(cfg: ModelConfig, p: dict, x_in, b_in, c_in, dt_raw, A,
 
 
 def _ssm_out(cfg: ModelConfig, p: dict, y: torch.Tensor, z: torch.Tensor,
-             dtype: torch.dtype) -> torch.Tensor:
+             dtype: torch.dtype, row: bool = False) -> torch.Tensor:
     """Mamba2's gated RMSNorm ``rmsnorm(y * silu(z), norm)`` in f32 and
-    the bf16 out product (``model.py:141-146``)."""
+    the bf16 out product (``model.py:141-146``): ``row_parallel`` where
+    the JAX block takes it (``row``), the plain product in ``prefill``."""
     b, s, din = y.shape
     y = rmsnorm(y.float() * F.silu(z.float()), p["norm"], cfg.norm_eps)
+    if row:
+        return row_parallel(y.to(torch.bfloat16), p["out"].to(torch.bfloat16),
+                            x_shard_dim=2).to(dtype)
     out = y.to(torch.bfloat16).reshape(b * s, din) @ p["out"].to(torch.bfloat16)
     return out.view(b, s, -1).to(dtype)
 
@@ -252,7 +297,7 @@ def _ssm_mixer(cfg: ModelConfig, p: dict, x: torch.Tensor, *, impl: str,
         y, _, _ = _ssm_sequence(cfg, p, x_in, b_in, c_in, dt_raw, A, impl=impl)
     else:
         y = _ssm_step(cfg, p, x_in, b_in, c_in, dt_raw, A, cache)
-    return _ssm_out(cfg, p, y, z, x.dtype)
+    return _ssm_out(cfg, p, y, z, x.dtype, row=True)
 
 
 def _ffn(cfg: ModelConfig, kind: dict, p: dict, x: torch.Tensor,
@@ -274,19 +319,21 @@ def _ffn(cfg: ModelConfig, kind: dict, p: dict, x: torch.Tensor,
 
 def apply_layer(cfg: ModelConfig, slot: int, p: dict, x: torch.Tensor, *,
                 positions, impl: str = "auto", cache: Optional[dict] = None,
-                pos: Optional[torch.Tensor] = None,
-                capacity_factor: Optional[float] = 1.25):
+                pos: Optional[torch.Tensor] = None, cp_axis: Optional[str] = None,
+                mesh=None, capacity_factor: Optional[float] = 1.25):
     """One layer: an attention or SSM mixer, then the dense MLP or the MoE
     where the config has an FFN. With ``cache`` (one layer's ``{"k","v"}``
     of shape (B,max_len,Hkv,hd), or its SSM states) it is a decode step
-    that writes the cache in place. Returns (x, aux): the MoE's
+    that writes the cache in place; with ``cp_axis``, this rank's rows of
+    a cache split on the sequence over that axis of ``mesh``. Returns (x, aux): the MoE's
     load-balance loss, None for other layers (JAX's 0, ``model.py:149-175``,
     without a device op on every decode step)."""
     kind = slot_kind(cfg, slot)
     h = rmsnorm(x, p["norm1"]["scale"], cfg.norm_eps)
     if kind["kind"] == "attn":
         mix = _attention_mixer(cfg, kind, p["attn"], h, positions=positions,
-                               impl=impl, cache=cache, pos=pos)
+                               impl=impl, cache=cache, pos=pos, cp_axis=cp_axis,
+                               mesh=mesh)
     else:
         mix = _ssm_mixer(cfg, p["ssm"], h, impl=impl, cache=cache)
     return _ffn(cfg, kind, p, x + mix, capacity_factor)
@@ -452,20 +499,62 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return tuple(slots)
 
 
+def init_cache_logical(cfg: ModelConfig) -> Tuple[dict, ...]:
+    """Each cache slot's logical axes (``model.py:327-342``)."""
+    slots_l = []
+    for slot in range(layer_period(cfg)):
+        if slot_kind(cfg, slot)["kind"] == "attn":
+            lg = ("layer_group", "decode_batch", "kv_seq", "kv_heads", None)
+            slots_l.append({"k": lg, "v": lg})
+        else:
+            slots_l.append({
+                "h": ("layer_group", "decode_batch", "ssm_inner", None, None),
+                "conv_x": ("layer_group", "decode_batch", None, "ssm_inner"),
+                "conv_b": ("layer_group", "decode_batch", None, None),
+                "conv_c": ("layer_group", "decode_batch", None, None),
+            })
+    return tuple(slots_l)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16):
+    """(``init_cache``'s tree on the ``meta`` device, logical axes): no
+    allocation (the dry-run's)."""
+    return init_cache(cfg, batch, max_len, dtype, "meta"), init_cache_logical(cfg)
+
+
+def shard_cache(cfg: ModelConfig, cache: Tuple[dict, ...], mesh,
+                axis: str = "data") -> Tuple[dict, ...]:
+    """This rank's rows of each attention cache of a whole cache, split
+    on the sequence over ``axis`` (the layout ``decode_step``'s
+    ``cp_axis`` takes: rank i of n holds rows [i·S/n, (i+1)·S/n), every
+    head), copied so the whole cache can go. SSM states stay whole."""
+    n, i = mesh.shape[axis], mesh.index(axis)
+
+    def cut(t):
+        rows = t.shape[2] // n
+        return t.narrow(2, i * rows, rows).clone()
+    return tuple({k: cut(t) for k, t in c.items()} if "k" in c else c for c in cache)
+
+
 def decode_step(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
                 cache: Tuple[dict, ...], pos: Union[int, torch.Tensor], *,
-                impl: str = "auto"):
+                cp_axis: Optional[str] = None, mesh=None, impl: str = "auto"):
     """One decode step. tokens (B,1), or (B,1,C) for codebooks; pos a
     scalar (aligned batch) or (B,) int tensor (continuous batching). MoE
-    layers dispatch losslessly. Writes the cache in place. Returns
-    (logits (B,1,V) or (B,1,C,V), cache)."""
+    layers dispatch losslessly. Writes the cache in place. With
+    ``cp_axis`` (context parallelism), ``cache`` is this rank's rows of
+    each attention cache split on the sequence over that axis of
+    ``mesh`` (``model.py:345-364``): rank i of n holds rows [i·S/n,
+    (i+1)·S/n). Returns (logits (B,1,V) or (B,1,C,V), cache)."""
     x = embed_tokens(cfg, params, tokens)
     pos = torch.as_tensor(pos, device=x.device)
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
     for slot, g, p in _layers(cfg, params):
         c = {name: t[g] for name, t in cache[slot].items()}
         x, _ = apply_layer(cfg, slot, p, x, positions=positions, impl=impl,
-                           cache=c, pos=pos, capacity_factor=None)
+                           cache=c, pos=pos, cp_axis=cp_axis, mesh=mesh,
+                           capacity_factor=None)
     x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return logits_for(cfg, params, x), cache
 

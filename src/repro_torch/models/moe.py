@@ -1,11 +1,18 @@
 """Mixture-of-Experts with capacity-based dispatch, the counterpart of
-``repro/models/moe.py``'s local path.
+``repro/models/moe.py``.
 
-One card, no mesh: ``moe_ffn`` is ``_moe_local`` (``moe.py:136``), the
-plain local dispatch. The JAX module's expert-parallel ``shard_map``
-branch (``moe.py:177-251``: each model shard takes the tokens of its
-E/TP experts, a psum combines them) waits for the multi-device slice of
-the port (ROADMAP A6).
+Two execution paths, as in the JAX module:
+
+- no mesh: ``_moe_local`` (``moe.py:136``), the plain local dispatch;
+- under ``use_mesh``: explicit **expert parallelism** (``moe.py:165-251``)
+  on this rank's local tensors. Activations are replicated across the
+  ``model`` axis, so every model rank holds the tokens: each routes them
+  identically, takes only those routed to *its* E/TP experts
+  (``lo = rank · E_local``), computes locally, and one sum over
+  ``model`` combines the partial outputs (no all-to-all, no
+  cross-rank cumsum). The FSDP gathers of the router and expert weights
+  over ``data`` happen explicitly inside, so the collective schedule is
+  visible.
 
 Tokens are routed top-k (``router_topk``), scattered into a per-expert
 capacity buffer of ``cap`` rows each (``_dispatch_compute_combine``), run
@@ -34,6 +41,9 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.collectives import all_gather, all_reduce
+from repro_torch.parallel.sharding import current_mesh
 
 
 class MoEMetrics(NamedTuple):
@@ -183,15 +193,86 @@ def _moe_local(x: torch.Tensor, params: dict, *, num_experts: int, top_k: int,
     return y.reshape(b, s, d).to(x.dtype), metrics
 
 
+def _fsdp_gather(w: torch.Tensor, dim: int, d: int, mesh) -> torch.Tensor:
+    """``w`` whole on its d_model dim ``dim``: as it is if whole, else the
+    all-gather of its FSDP shards over ``data``."""
+    if w.shape[dim] == d:
+        return w
+    if w.shape[dim] * mesh.shape.get("data", 1) != d:
+        raise ValueError(f"dim {dim} of {tuple(w.shape)} is neither d_model {d} "
+                         f"nor its share over data")
+    return all_gather(w, mesh.get_group("data"), dim)
+
+
+def _moe_ep(x: torch.Tensor, params: dict, mesh, *, num_experts: int, top_k: int,
+            activation, capacity_factor: Optional[float], ep: bool, bax):
+    """The expert-parallel branch (``moe.py:199-251``) on this rank's
+    local tensors. Each weight is this rank's shard (as its logical axes
+    place it: experts over ``model``, d_model over ``data``) or the whole
+    tensor, which is cut to this rank's experts locally and needs no
+    gather."""
+    e = num_experts
+    b_loc, s_loc, d = x.shape
+    e_local = e // mesh.shape["model"] if ep else e
+    lo = mesh.index("model") * e_local if ep else 0
+    w_in, w_out = params["w_in"], params["w_out"]
+    if w_in.shape[0] != e_local:
+        w_in, w_out = w_in[lo:lo + e_local], w_out[lo:lo + e_local]
+    router = _fsdp_gather(params["router"], 0, d, mesh)
+    w_in = _fsdp_gather(w_in, 1, d, mesh)
+    w_out = _fsdp_gather(w_out, 2, d, mesh)
+    t = b_loc * s_loc
+    x2d = x.reshape(t, d)
+    weights, idx, probs = router_topk(x2d, router, top_k)
+    aux = load_balance_loss(probs, idx, e)
+    cap = _capacity(t, top_k, e, capacity_factor)
+    y, keep, _ = _dispatch_compute_combine(
+        x2d, weights, idx, lo=lo, e_local=e_local, cap=cap,
+        w_in=w_in, w_out=w_out, activation=activation)
+    if ep:
+        # JAX's psum of bf16 y: XLA sums it in f32 and rounds once
+        y = all_reduce(y.to(torch.bfloat16).float(), mesh.get_group("model"))
+        y = y.to(torch.bfloat16)
+        kept = all_reduce(keep.sum(), mesh.get_group("model"))
+        dropped = 1.0 - _share(kept, idx.numel())
+    else:
+        dropped = 1.0 - _share(keep.sum(), keep.numel())
+    load = _share(_counts(idx, e, torch.float32), idx.numel())
+    for ax in bax:                                  # pmean over the batch axes
+        packed = torch.cat([aux.reshape(1), dropped.reshape(1), load])
+        packed = all_reduce(packed, mesh.get_group(ax)) / torch.tensor(
+            float(mesh.shape[ax]), device=packed.device)
+        aux, dropped, load = packed[0], packed[1], packed[2:]
+    return y.reshape(b_loc, s_loc, d).to(x.dtype), \
+        MoEMetrics(aux_loss=aux, dropped_frac=dropped, expert_load=load)
+
+
 def moe_ffn(x: torch.Tensor, params: dict, *, num_experts: int, top_k: int,
             activation, capacity_factor: Optional[float] = 1.25,
             hot_expert_replicas: int = 1):
     """x (B,S,D) -> ((B,S,D), MoEMetrics). ``params``: ``router`` (D,E),
     ``w_in`` (E,D,2,F), ``w_out`` (E,F,D). ``capacity_factor=None`` is
     lossless (each expert may take every token); ``hot_expert_replicas >
-    1`` enables Advice #1's hot-expert replication. One card: the local
-    dispatch; the expert-parallel path waits for the multi-device slice."""
-    return _moe_local(x, params, num_experts=num_experts, top_k=top_k,
+    1`` enables Advice #1's hot-expert replication (local dispatch only:
+    the EP path balances by shard ownership).
+
+    Under ``use_mesh`` with a ``model`` axis that divides E (``ep``) or a
+    batch axis (``pod``, ``data``) of size > 1, the expert-parallel branch
+    runs on this rank's local tensors: x is this rank's share of the batch
+    split over every such batch axis (the metrics are averaged over
+    them), each weight its shard or whole (``_moe_ep``). Otherwise the
+    local dispatch."""
+    mesh = current_mesh()
+    e = num_experts
+    if mesh is not None:
+        msize = mesh.shape.get("model", 1)
+        bax = [a for a in ("pod", "data") if mesh.shape.get(a, 1) > 1]
+        ep = msize > 1 and e % msize == 0
+        if ep or bax:
+            return _moe_ep(x, params, mesh, num_experts=e, top_k=top_k,
+                           activation=activation, capacity_factor=capacity_factor,
+                           ep=ep, bax=bax)
+    return _moe_local(x, params, num_experts=e, top_k=top_k,
                       activation=activation, capacity_factor=capacity_factor,
                       hot_expert_replicas=hot_expert_replicas)
 
@@ -210,3 +291,4 @@ def moe_ffn_dense_ref(x: torch.Tensor, params: dict, *, num_experts: int,
         wsum = torch.where(idx == ei, weights, 0.0).sum(-1)          # (T,)
         y = y + o * wsum[:, None]
     return y.reshape(b, s, d).to(x.dtype)
+

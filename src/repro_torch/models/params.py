@@ -11,16 +11,21 @@ Every slot kind of the JAX package: attention (``wq``, ``wk``, ``wv``,
 (``router (D,E)``, ``w_in (E,D,2,F)``, ``w_out (E,F,D)``). Codebook
 configs embed and unembed with ``(C,V,D)`` tables; a frontend adds no
 params (its embeddings come precomputed, as in the JAX package).
+
+A parallel tree of logical-axis tuples (``_logical_only``) drives
+sharding (``parallel/sharding.py``); ``abstract_params`` gives the shapes
+on the ``meta`` device, with no allocation.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.sharding import is_logical, tree_map
 
 PyTree = Any
 
@@ -62,6 +67,52 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.num_experts and not 0 < cfg.num_experts_per_tok <= cfg.num_experts:
         raise ValueError(f"{cfg.name}: top-{cfg.num_experts_per_tok} routing over "
                          f"{cfg.num_experts} experts")
+
+
+def _attn_shapes(cfg: ModelConfig):
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    shapes = {
+        "wq": ((d, hq, hd), ("fsdp", "heads", None)),
+        "wk": ((d, hkv, hd), ("fsdp", "kv_heads", None)),
+        "wv": ((d, hkv, hd), ("fsdp", "kv_heads", None)),
+        "wo": ((hq, hd, d), ("heads", None, "fsdp")),
+    }
+    return shapes
+
+
+def _mlp_shapes(cfg: ModelConfig):
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w_in": ((d, 2, f), ("fsdp", None, "mlp")),
+        "w_out": ((f, d), ("mlp", "fsdp")),
+    }
+
+
+def _moe_shapes(cfg: ModelConfig):
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {
+        "router": ((d, e), ("fsdp", None)),
+        "w_in": ((e, d, 2, f), ("experts", "fsdp", None, None)),
+        "w_out": ((e, f, d), ("experts", None, "fsdp")),
+    }
+
+
+def _ssm_shapes(cfg: ModelConfig):
+    d, din, n, h, k = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                       cfg.ssm_heads, cfg.ssm_conv)
+    return {
+        "w_xz": ((d, 2, din), ("fsdp", None, "ssm_inner")),
+        "w_bc": ((d, 2, n), ("fsdp", None, None)),
+        "w_dt": ((d, h), ("fsdp", "ssm_inner")),
+        "conv_x": ((k, din), (None, "ssm_inner")),
+        "conv_b": ((k, n), (None, None)),
+        "conv_c": ((k, n), (None, None)),
+        "A_log": ((h,), ("ssm_inner",)),
+        "D": ((h,), ("ssm_inner",)),
+        "dt_bias": ((h,), ("ssm_inner",)),
+        "norm": ((din,), ("ssm_inner",)),
+        "out": ((din, d), ("ssm_inner", "fsdp")),
+    }
 
 
 def _normal(shape, std, generator, device):
@@ -172,3 +223,41 @@ def compute_copy(params: PyTree) -> PyTree:
             return tuple(walk(v, name) for v in node)
         return node if name in F32_LEAVES else node.to(torch.bfloat16)
     return walk(params)
+
+
+def abstract_params(cfg: ModelConfig) -> Tuple[PyTree, PyTree]:
+    """(``init_params``'s tree on the ``meta`` device, logical axes): the
+    shapes and dtypes with no allocation (the dry-run's)."""
+    _, logical = _logical_only(cfg)
+    return init_params(cfg, None, "meta"), logical
+
+
+def _logical_only(cfg: ModelConfig):
+    """The logical-axis tree, touching no tensor (``params.py:208-218``)."""
+    vlogical = ((None, "vocab", "fsdp") if cfg.num_codebooks > 1
+                else ("vocab", "fsdp"))
+    logical: dict = {"embed": {"table": vlogical}}
+    logical["layers"] = tuple(_slot_logical(cfg, slot)
+                              for slot in range(layer_period(cfg)))
+    logical["final_norm"] = {"scale": ("embed",)}
+    if not cfg.tie_embeddings:
+        logical["lm_head"] = {"w": vlogical}
+    return None, logical
+
+
+def _slot_logical(cfg: ModelConfig, slot: int):
+    """One period slot's logical axes, each behind a leading
+    "layer_group" (the stacked groups' dim)."""
+    kind = slot_kind(cfg, slot)
+    logical = {"norm1": {"scale": ("embed",)}}
+    if kind["kind"] == "attn":
+        logical["attn"] = {n: lg for n, (s, lg) in _attn_shapes(cfg).items()}
+    else:
+        logical["ssm"] = {n: lg for n, (s, lg) in _ssm_shapes(cfg).items()}
+    if kind["has_ffn"]:
+        logical["norm2"] = {"scale": ("embed",)}
+        if kind["moe"]:
+            logical["moe"] = {n: lg for n, (s, lg) in _moe_shapes(cfg).items()}
+        else:
+            logical["mlp"] = {n: lg for n, (s, lg) in _mlp_shapes(cfg).items()}
+    return tree_map(lambda lg: ("layer_group",) + lg, logical, is_leaf=is_logical)

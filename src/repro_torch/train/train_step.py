@@ -8,11 +8,27 @@ forward + CE, backward, clip, AdamW.
 - remat policy (``RunConfig.remat_policy``): none | minimal | full
   (``models/model.py::forward``);
 - ``moments_int8``: AdamW moments stored blockwise-int8, through the CUDA
-  quantize / dequantize kernels on the card.
+  quantize / dequantize kernels on the card;
+- ``mesh``: SPMD ranks (``parallel/sharding.Mesh``), each holding the
+  whole params and the whole global batch. A rank takes its share of
+  the batch over the batch axes (``pod``, ``data``; ``model`` ranks
+  compute the same share), and its grads, loss and parts are averaged
+  over those axes by one exact all-reduce each, where JAX's SPMD
+  partitioner takes the mean over the batch. With ``pod_sync=
+  "compressed"`` and a ``pod`` axis of size > 1 (``train_step.py:
+  160-191``), the exact mean runs over ``data`` only (the pod's share,
+  with "batch" resolved to data), and each grad leaf crosses the pods
+  through the int8 ring (``core/collectives.compressed_ring_all_reduce_inner``
+  of g / n_pod), the LineFS "compress before the slow path" choice;
+  loss and parts take the pods' mean. Each shard's CE is weighted by
+  its share of the mask count (one all-reduce of the counts per
+  microbatch), so the mean over the shards is JAX's global mean,
+  sum(mask·ce) / sum(mask), also where the shards' counts differ; and a
+  rank's microbatch j is its share of the global batch's microbatch j,
+  as JAX splits the global batch before the partitioner shards it. The
+  MoE aux loss is the mean of the shards' own.
 
-Grads come from ``torch.autograd.grad`` on the f32 master leaves. One
-card, no mesh: ``pod_sync="compressed"`` (the int8 ring across pods)
-raises until the multi-device slice.
+Grads come from ``torch.autograd.grad`` on the f32 master leaves.
 """
 from __future__ import annotations
 
@@ -21,10 +37,12 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core.collectives import all_reduce, compressed_ring_all_reduce_inner
 from repro_torch.models import model as M
 from repro_torch.models.attention import train_impl
 from repro_torch.optim.adamw import adamw_update, tree_leaves, tree_unflatten
 from repro_torch.optim.schedule import lr_at
+from repro_torch.parallel.sharding import local_shard, logical_to_spec, rule_overrides
 
 PyTree = Any
 Batch = Dict[str, torch.Tensor]
@@ -32,13 +50,15 @@ Batch = Dict[str, torch.Tensor]
 
 def loss_fn(cfg: ModelConfig, params: PyTree, batch: Batch, *,
             impl: str = "auto", remat: str = "minimal",
-            capacity_factor: Optional[float] = 1.25, loss_chunk: int = 512):
+            capacity_factor: Optional[float] = 1.25, loss_chunk: int = 512,
+            ce_weight: Optional[torch.Tensor] = None):
     """(CE + router_aux_loss · aux, {"ce", "aux"}) (``train_step.py:36-46``):
     the batch's ``frontend_embeds`` go in front of its tokens, MoE layers
     dispatch at ``capacity_factor``. ``impl="auto"`` is the JAX package's
     rule for a training forward (``train_impl``) at the whole sequence's
     length: the plain attention below 2048 tokens, the blocked scan from
-    2048, never the forward-only CUDA kernels."""
+    2048, never the forward-only CUDA kernels. ``ce_weight`` scales the
+    CE (a shard's share of a batch's mask count, on a mesh)."""
     fe = batch.get("frontend_embeds")
     if impl == "auto":
         impl = train_impl(batch["tokens"].shape[1] + (0 if fe is None else fe.shape[1]))
@@ -46,6 +66,8 @@ def loss_fn(cfg: ModelConfig, params: PyTree, batch: Batch, *,
                     capacity_factor=capacity_factor)
     ce = M.cross_entropy(cfg, params, res.hidden, batch["labels"],
                          batch["loss_mask"], chunk=loss_chunk)
+    if ce_weight is not None:
+        ce = ce * ce_weight
     aux_w = cfg.router_aux_loss if cfg.num_experts else 0.0
     return ce + aux_w * res.aux_loss, {"ce": ce, "aux": res.aux_loss}
 
@@ -88,27 +110,46 @@ def split_by_shares(batch: Batch, shares: Sequence[int]) -> list:
     return subs
 
 
+def _axes(entry) -> tuple:
+    return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+
+
+def _mean_over(xs, mesh, axes):
+    """Each tensor of ``xs`` averaged over the mesh ``axes`` (one exact
+    all-reduce per axis, then one division by a device tensor). The list
+    ``xs`` is returned with each item replaced as it is averaged, so no
+    more than one tensor is held twice."""
+    if not axes:
+        return xs
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    for i, x in enumerate(xs):
+        for a in axes:
+            x = all_reduce(x, mesh.get_group(a))
+        xs[i] = x / torch.tensor(float(n), device=x.device)
+    return xs
+
+
 def make_train_step(cfg: ModelConfig, run: RunConfig, *, impl: str = "auto",
-                    loss_chunk: int = 512):
+                    mesh=None, loss_chunk: int = 512):
     """Returns ``train_step(params, opt_state, batch, step,
     node_shares=None) -> (params, opt_state, metrics)``. ``params`` and
     f32 moments are updated in place (``optim/adamw.py``). ``node_shares``
     (per-node microbatch counts): equal shares take the unchanged plain
     path, so they are bit-identical to passing none; skewed shares run
     each node's sub-batch and combine the sums into the same global
-    mean."""
-    if run.pod_sync == "compressed":
-        raise NotImplementedError(
-            "pod_sync='compressed' (the int8 gradient ring across pods) needs "
-            "the multi-device slice of the port (ROADMAP A9)")
+    mean. With ``mesh``, every rank calls it with the same params and
+    the same global batch (module docstring)."""
     moments = "int8" if run.moments_int8 else "f32"
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, weigh=None):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        w = None if weigh is None else weigh(batch["loss_mask"])
         with torch.enable_grad():
             loss, parts = loss_fn(cfg, tree_unflatten(params, leaves), batch,
                                   impl=impl, remat=run.remat_policy,
-                                  loss_chunk=loss_chunk)
+                                  loss_chunk=loss_chunk, ce_weight=w)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
         parts = {k: v.detach() for k, v in parts.items()}
@@ -121,13 +162,13 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, impl: str = "auto",
             a.add_(b.float())
         return (tot[0] + r[0], {k: tot[1][k] + r[1][k] for k in tot[1]}, tot[2])
 
-    def scan_sum(params, batch, k):
+    def scan_sum(params, batch, k, weigh=None):
         """Sum (not mean) of loss/parts/f32-grads over ``k`` microbatches.
         The first microbatch's grads start the sum (0 + g is g), which
         saves a zeroed f32 copy of the params."""
         tot = None
         for mb in _split_microbatches(batch, k):
-            r = grads_of(params, mb)
+            r = grads_of(params, mb, weigh)
             tot = r if tot is None else add(tot, r)
         return tot
 
@@ -139,23 +180,77 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, impl: str = "auto",
             g.div_(kt)
         return loss / kt, {n: v / kt for n, v in parts.items()}, grads
 
-    def accumulate(params, batch, node_shares=None):
-        if node_shares is not None and len(node_shares) > 1 \
-                and len(set(node_shares)) > 1:
+    def skewed(node_shares):
+        return node_shares is not None and len(node_shares) > 1 \
+            and len(set(node_shares)) > 1
+
+    def accumulate(params, batch, node_shares=None, weigh=None):
+        if skewed(node_shares):
             tot = None
             for s, sub in zip(node_shares, split_by_shares(batch, node_shares)):
-                r = scan_sum(params, sub, s)
+                r = scan_sum(params, sub, s, weigh)
                 tot = r if tot is None else add(tot, r)
             return mean(*tot, sum(node_shares))
         # equal (or absent) shares: literally the plain path
         k = run.microbatch or 1
         if k > 1:
-            return mean(*scan_sum(params, batch, k), k)
-        return grads_of(params, batch)
+            return mean(*scan_sum(params, batch, k, weigh), k)
+        return grads_of(params, batch, weigh)
+
+    def on_mesh(params, batch, node_shares):
+        """This rank's share of the batch, its grads and their means."""
+        b = next(iter(batch.values())).shape[0]
+        npod = mesh.shape.get("pod", 1)
+        compressed = run.pod_sync == "compressed" and npod > 1
+        if compressed:
+            if b % npod:
+                raise ValueError(f"batch of {b} does not split over {npod} pods")
+            with rule_overrides({"batch": "data", "decode_batch": "data"}):
+                mean_axes = _axes(logical_to_spec(("batch",), mesh, dim_sizes=(b // npod,))[0])
+            batch = {k: local_shard(v, mesh, ("pod",)) for k, v in batch.items()}
+        else:
+            mean_axes = _axes(logical_to_spec(("batch",), mesh, dim_sizes=(b,))[0])
+        # this rank's share of each microbatch of the (pod's) batch, in
+        # order, so that its microbatch j is its share of JAX's microbatch j
+        nmb = sum(node_shares) if skewed(node_shares) else run.microbatch or 1
+        spec0 = (mean_axes or None,)
+        local = {k: torch.cat([local_shard(mb[k], mesh, spec0)
+                               for mb in _split_microbatches(batch, nmb)])
+                 for k in batch}
+        n = 1
+        for a in mean_axes:
+            n *= mesh.shape[a]
+
+        def weigh(mask):
+            """This shard's share of the mask count over ``mean_axes``,
+            times their size: the mean of the weighted CEs is the global
+            sum(mask·ce) / sum(mask), as JAX's."""
+            own = tot = mask.sum()
+            for a in mean_axes:                 # a new tensor each time
+                tot = all_reduce(tot, mesh.get_group(a))
+            nt = torch.tensor(float(n), device=own.device)
+            return torch.clamp(own, min=1.0) * nt / torch.clamp(tot, min=1.0)
+
+        loss, parts, grads = accumulate(params, local, node_shares=node_shares,
+                                        weigh=weigh if mean_axes else None)
+        names = list(parts)
+        scalars = _mean_over([torch.stack([loss] + [parts[k] for k in names])], mesh,
+                             mean_axes)[0]
+        grads = _mean_over(grads, mesh, mean_axes)
+        if compressed:
+            pod = mesh.get_group("pod")
+            npod_t = torch.tensor(float(npod), device=scalars.device)
+            for i, g in enumerate(grads):   # in place: one leaf held twice at most
+                grads[i] = compressed_ring_all_reduce_inner(g.float() / npod_t, pod).to(g.dtype)
+            scalars = _mean_over([scalars], mesh, ("pod",))[0]
+        return scalars[0], {k: scalars[i + 1] for i, k in enumerate(names)}, grads
 
     def train_step(params, opt_state, batch, step,
                    node_shares: Optional[Sequence[int]] = None):
-        loss, parts, grads = accumulate(params, batch, node_shares=node_shares)
+        if mesh is None:
+            loss, parts, grads = accumulate(params, batch, node_shares=node_shares)
+        else:
+            loss, parts, grads = on_mesh(params, batch, node_shares)
         grads = tree_unflatten(params, grads)
         lr = lr_at(step, base_lr=run.learning_rate,
                    warmup_steps=run.warmup_steps, total_steps=run.total_steps)

@@ -1,0 +1,646 @@
+"""The port's multi-device path on 8 gloo CPU ranks against the JAX
+package's on 8 host devices, the same inputs and meshes as
+``scripts/dist_checks.py``.
+
+Two subprocesses, each with its own timeout: ``JAX_SCRIPT`` runs the JAX
+functions under ``--xla_force_host_platform_device_count=8`` on inputs
+made with numpy from a seed and writes them and the outputs to an
+``.npz``; ``PORT_SCRIPT`` reads those inputs, runs the port on 8 ranks
+(``repro_torch.parallel.ranks.spawn``: one process per mesh position,
+gloo, a file rendezvous) and writes its outputs, assembled in global
+order. The tests compare the two:
+
+- all-gather (bidirectional and one-way rings): exact;
+- hierarchical all-reduce: the port within 1e-5 of 8y and of JAX;
+- compressed ring: the port within one int8 step of the final scale of
+  JAX, and each within 0.02 (relative) of 2y;
+- ``row_parallel`` under ``bf16_collectives`` at model 2 (the MLP and
+  the attention-output forms): within one bf16 step of JAX's output;
+- context-parallel decode: 1e-4 of JAX's and of the local decode; at
+  the model level (reduced internlm2, ``decode_step`` with ``cp_axis``,
+  the cache's rows split 4 ways, 3 teacher-forced steps) the logits
+  within rel 4e-2 (``tests/test_models.py:59``) of JAX's CP decode and
+  1e-5 of the port's one-rank decode, a scalar and a per-row position
+  alike;
+- expert-parallel MoE: 5e-2 of JAX's ``moe_ffn`` and of the dense
+  oracle, dropped fraction 0, aux loss and expert load of JAX's (1e-5);
+- compressed pod sync on reduced internlm2 (bridged params, step 1):
+  JAX's ``"compressed"`` against the port's, loss relative 1e-3 and
+  params 5e-3, and the port's ``"auto"`` against its ``"compressed"`` at
+  the same limits; every rank ends with the same params. The synced
+  grads themselves (each side's step hands them to its wrapped
+  ``adamw_update``), with a loss mask of ones and a ragged one whose
+  shards' counts differ: the port's exact mean against its one-rank step
+  on the whole batch (also in two microbatches) and against JAX's, its
+  ring against JAX's, each leaf rel 4e-2 by norm; its ring against its
+  exact mean within 2 int8 steps, the grad norm rel 1e-2;
+- elastic reshard from ``best_mesh_for(8, model=2)`` to
+  ``best_mesh_for(4, model=2)``: bit-equal.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+TIMEOUT = 420       # seconds for each subprocess; the port's ranks get 300
+# the pod sync's synced grads: "rel" each leaf's relative difference by
+# norm where bf16 compute copies round at other places (the port against
+# JAX, the mesh's 2-row shards against one rank's 8-row batch), the limit
+# of every grad held to JAX's (REL of tests/test_torch_train.py); "int8"
+# in int8 steps of a leaf's largest |grad|; "norm" the grad norm's
+# relative difference
+POD_SYNC_TOL = dict(rel=4e-2, int8=2.0, norm=1e-2)
+
+JAX_SCRIPT = r'''
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax
+import jax.numpy as jnp
+import numpy as np
+from jax.sharding import NamedSharding, PartitionSpec as P
+
+from repro.configs import RunConfig, get_config
+from repro.core.collectives import (all_gather_bidirectional, all_reduce_compressed,
+                                    all_reduce_hierarchical)
+from repro.models import precision
+from repro.models.attention import decode_attention, decode_attention_context_parallel
+from repro.models.layers import row_parallel
+from repro.models.moe import moe_ffn, moe_ffn_dense_ref
+from repro.models.params import init_params
+from repro.optim.adamw import adamw_init
+from repro.train.train_step import make_train_step
+
+assert len(jax.devices()) == 8
+rng = np.random.default_rng(0)
+out = {}
+AUTO = (jax.sharding.AxisType.Auto,)
+
+
+def mesh(shape, names):
+    return jax.make_mesh(shape, names, axis_types=AUTO * len(names))
+
+
+# collectives, dist_checks.py:24-42
+m = mesh((2, 4), ("pod", "data"))
+out["x"] = x = rng.standard_normal((16, 8)).astype(np.float32)
+out["y"] = y = rng.standard_normal((12, 5)).astype(np.float32)
+with jax.set_mesh(m):
+    xs = jax.device_put(x, NamedSharding(m, P("data", None)))
+    out["ag"] = np.asarray(jax.jit(lambda a: all_gather_bidirectional(a, m, "data"))(xs))
+    out["hier"] = np.asarray(jax.jit(lambda a: all_reduce_hierarchical(a, m, "data", "pod"))(y))
+    out["comp"] = np.asarray(jax.jit(lambda a: all_reduce_compressed(a, m, "pod"))(y))
+
+# row_parallel under bf16 collectives at model 2
+m = mesh((4, 2), ("data", "model"))
+out["rp_h"] = rng.standard_normal((2, 8, 64)).astype(np.float32)
+out["rp_w"] = (rng.standard_normal((64, 32)) * 0.1).astype(np.float32)
+out["rp_o"] = rng.standard_normal((2, 8, 4, 16)).astype(np.float32)
+out["rp_wo"] = (rng.standard_normal((4, 16, 32)) * 0.1).astype(np.float32)
+with jax.set_mesh(m), precision.bf16_collectives():
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)
+    f = jax.jit(lambda a, b: row_parallel("bsf,fd->bsd", a, b, x_shard_dim=2, w_shard_dim=0))
+    out["rp_mlp"] = np.asarray(f(bf(out["rp_h"]), bf(out["rp_w"])).astype(jnp.float32))
+    f = jax.jit(lambda a, b: row_parallel("bshk,hkd->bsd", a, b, x_shard_dim=2, w_shard_dim=0))
+    out["rp_attn"] = np.asarray(f(bf(out["rp_o"]), bf(out["rp_wo"])).astype(jnp.float32))
+
+# context-parallel decode, dist_checks.py:72-92
+m = mesh((2, 4), ("data", "model"))
+out["cp_q"] = q = rng.standard_normal((2, 1, 4, 16)).astype(np.float32)
+out["cp_k"] = kc = rng.standard_normal((2, 64, 2, 16)).astype(np.float32)
+out["cp_v"] = vc = rng.standard_normal((2, 64, 2, 16)).astype(np.float32)
+out["cp_ref"] = np.asarray(decode_attention(q, kc, vc, jnp.asarray(40)))
+with jax.set_mesh(m):
+    qs = jax.device_put(q, NamedSharding(m, P("data", None, None, None)))
+    kcs = jax.device_put(kc, NamedSharding(m, P("data", "model", None, None)))
+    vcs = jax.device_put(vc, NamedSharding(m, P("data", "model", None, None)))
+    out["cp"] = np.asarray(jax.jit(lambda a, b, c: decode_attention_context_parallel(
+        a, b, c, jnp.asarray(40), mesh=m, axis="model", batch_axes=("data",)))(qs, kcs, vcs))
+
+# expert-parallel MoE, dist_checks.py:45-69
+m = mesh((2, 2, 2), ("pod", "data", "model"))
+B, S, D, E, K, F = 4, 8, 32, 8, 2, 64
+out["moe_x"] = xm = (rng.standard_normal((B, S, D)) * 0.5).astype(np.float32)
+out["moe_router"] = (rng.standard_normal((D, E)) * 0.02).astype(np.float32)
+out["moe_w_in"] = (rng.standard_normal((E, D, 2, F)) * 0.05).astype(np.float32)
+out["moe_w_out"] = (rng.standard_normal((E, F, D)) * 0.05).astype(np.float32)
+params = {k: jnp.asarray(out["moe_" + k]) for k in ("router", "w_in", "w_out")}
+out["moe_dense"] = np.asarray(moe_ffn_dense_ref(jnp.asarray(xm), params, num_experts=E,
+                                                top_k=K, activation=jax.nn.silu))
+with jax.set_mesh(m):
+    xs = jax.device_put(xm, NamedSharding(m, P(("pod", "data"), None, None)))
+    ps = {"router": jax.device_put(params["router"], NamedSharding(m, P("data", None))),
+          "w_in": jax.device_put(params["w_in"], NamedSharding(m, P("model", "data", None, None))),
+          "w_out": jax.device_put(params["w_out"], NamedSharding(m, P("model", None, "data")))}
+    y, mt = jax.jit(lambda a, b: moe_ffn(a, b, num_experts=E, top_k=K, activation=jax.nn.silu,
+                                         capacity_factor=None))(xs, ps)
+out["moe_y"] = np.asarray(y, np.float32)
+out["moe_dropped"] = np.asarray(mt.dropped_frac)
+out["moe_aux"] = np.asarray(mt.aux_loss)
+out["moe_load"] = np.asarray(mt.expert_load)
+
+# compressed pod sync, dist_checks.py:95-126, at step 1 (step 0's lr is 0).
+# The step's synced grads come out in its metrics: the optimizer that the
+# step calls is wrapped here (no file of the JAX package changes).
+import repro.train.train_step as JT
+_adamw = JT.adamw_update
+
+
+def _adamw_keeping_grads(grads, *a, **k):
+    p2, o2, om = _adamw(grads, *a, **k)
+    return p2, o2, dict(om, grads=grads)
+
+
+JT.adamw_update = _adamw_keeping_grads
+cfg = get_config("internlm2-1.8b").reduced()
+m = mesh((2, 2, 2), ("pod", "data", "model"))
+params, _ = init_params(cfg, jax.random.PRNGKey(0))
+b, s = 8, 32
+tokens = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+out["ps_tokens"] = tokens
+for i, leaf in enumerate(jax.tree.leaves(params)):
+    out[f"ps_p0_{i}"] = np.asarray(leaf)
+# "ragged": each row's loss covers a prefix of its own length, so the
+# shards' mask counts differ
+out["ps_mask_ones"] = np.ones((b, s), np.float32)
+out["ps_mask_ragged"] = (np.arange(s)[None] < rng.integers(1, s + 1, (b, 1))).astype(np.float32)
+for mask in ("ones", "ragged"):
+    batch = {"tokens": tokens, "labels": tokens, "loss_mask": out[f"ps_mask_{mask}"]}
+    for mode in ("auto", "compressed"):
+        with jax.set_mesh(m):
+            run = RunConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10, pod_sync=mode)
+            step = jax.jit(make_train_step(cfg, run, impl="ref", mesh=m))
+            bput = {k: jax.device_put(jnp.asarray(v), NamedSharding(m, P(("pod", "data"),)))
+                    for k, v in batch.items()}
+            p2, _, met = step(params, adamw_init(params), bput, jnp.asarray(1))
+        out[f"ps_{mask}_{mode}_loss"] = np.asarray(met["loss"])
+        out[f"ps_{mask}_{mode}_grad_norm"] = np.asarray(met["grad_norm"])
+        for i, g in enumerate(jax.tree.leaves(met["grads"])):
+            out[f"ps_{mask}_{mode}_g{i}"] = np.asarray(g, np.float32)
+        if (mask, mode) == ("ones", "compressed"):
+            out["ps_loss"] = out[f"ps_{mask}_{mode}_loss"]
+            out["ps_grad_norm"] = out[f"ps_{mask}_{mode}_grad_norm"]
+            for i, leaf in enumerate(jax.tree.leaves(p2)):
+                out[f"ps_p1_{i}"] = np.asarray(leaf)
+JT.adamw_update = _adamw
+
+# model-level context-parallel decode on (data 4, model 2)
+from repro.models import model as JM
+m = mesh((4, 2), ("data", "model"))
+out["cpm_prompt"] = prompt = rng.integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
+out["cpm_forced"] = forced = rng.integers(0, cfg.vocab_size, (3, 2)).astype(np.int32)
+_, cache, npos = JM.prefill(cfg, params, jnp.asarray(prompt), 64, impl="ref")
+with jax.set_mesh(m):
+    cache = jax.tree.map(lambda c: jax.device_put(
+        c, NamedSharding(m, P(None, None, "data", None, None))), cache)
+    dstep = jax.jit(lambda p, tk, c, pos: JM.decode_step(cfg, p, tk, c, pos, cp_axis="data",
+                                                         mesh=m))
+    logits = []
+    for i in range(3):
+        lg, cache = dstep(params, jnp.asarray(forced[i][:, None]), cache,
+                          jnp.asarray(int(npos) + i, jnp.int32))
+        logits.append(np.asarray(lg))
+out["cpm_logits"] = np.stack(logits)
+np.savez(sys.argv[1], **out)
+print("JAX DONE")
+'''
+
+PORT_SCRIPT = r'''
+import sys
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.bridge import params_from_numpy
+from repro_torch.configs import RunConfig, get_config
+from repro_torch.core import collectives as C
+from repro_torch.ft.elastic import best_mesh_for, make_mesh, reshard
+from repro_torch.models import precision
+from repro_torch.models import model as TM
+from repro_torch.models.attention import decode_attention_context_parallel
+from repro_torch.models.layers import row_parallel
+from repro_torch.models.moe import moe_ffn
+from repro_torch.models.params import _logical_only, init_params
+from repro_torch.optim.adamw import adamw_init, adamw_update, tree_leaves, tree_unflatten
+from repro_torch.parallel import ranks
+from repro_torch.parallel.sharding import Mesh, full_tensor, local_shard, use_mesh
+from repro_torch.train import train_step as TS
+from repro_torch.train.train_step import make_train_step
+
+
+def t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def body(rank, world, inp):
+    res = {}
+    # collectives on (pod 2, data 4)
+    m = Mesh((2, 4), ("pod", "data"), device="cpu")
+    xs = local_shard(t(inp["x"]), m, ("data", None))
+    res["ag"] = C.all_gather_bidirectional(xs, m, "data").numpy()
+    res["ag1"] = C.ring_all_gather(xs, m.get_group("data"), bidirectional=False).numpy()
+    res["hier"] = C.all_reduce_hierarchical(t(inp["y"]), m, "data", "pod").numpy()
+    res["comp"] = C.all_reduce_compressed(t(inp["y"]), m, "pod").numpy()
+    res["rs"] = C.ring_reduce_scatter(t(inp["x"]), m.get_group("data")).numpy()
+
+    # row_parallel on (data 4, model 2)
+    m = Mesh((4, 2), ("data", "model"), device="cpu")
+    bf = lambda a: t(a).to(torch.bfloat16)
+    with use_mesh(m), precision.bf16_collectives():
+        res["rp_mlp"] = row_parallel(bf(inp["rp_h"]), bf(inp["rp_w"]), 2).float().numpy()
+        res["rp_attn"] = row_parallel(bf(inp["rp_o"]), bf(inp["rp_wo"]), 2).float().numpy()
+
+    # context-parallel decode on (data 2, model 4): the cache on (data, model)
+    m = Mesh((2, 4), ("data", "model"), device="cpu")
+    q = local_shard(t(inp["cp_q"]), m, ("data", None, None, None))
+    kc = local_shard(t(inp["cp_k"]), m, ("data", "model", None, None))
+    vc = local_shard(t(inp["cp_v"]), m, ("data", "model", None, None))
+    res["cp"] = decode_attention_context_parallel(q, kc, vc, torch.tensor(40), mesh=m,
+                                                  axis="model").numpy()
+    res["cp_row"] = m.index("data")
+
+    # expert-parallel MoE on (pod 2, data 2, model 2), the weights' shards
+    m = Mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
+    x = local_shard(t(inp["moe_x"]), m, (("pod", "data"), None, None))
+    params = {"router": local_shard(t(inp["moe_router"]), m, ("data", None)),
+              "w_in": local_shard(t(inp["moe_w_in"]), m, ("model", "data", None, None)),
+              "w_out": local_shard(t(inp["moe_w_out"]), m, ("model", None, "data"))}
+    with use_mesh(m):
+        y, mt = moe_ffn(x, params, num_experts=8, top_k=2, activation=F.silu,
+                        capacity_factor=None)
+    res["moe_y"] = y.float().numpy()
+    res["moe_row"] = m.index("pod") * 2 + m.index("data")
+    res["moe_dropped"] = float(mt.dropped_frac)
+    res["moe_aux"] = float(mt.aux_loss)
+    res["moe_load"] = mt.expert_load.numpy()
+
+    # pod sync on (pod 2, data 2, model 2), reduced internlm2 from JAX's
+    # params; the synced grads kept by wrapping the step's optimizer
+    cfg = get_config("internlm2-1.8b").reduced()
+    like = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    p0 = tree_unflatten(like, [t(inp[f"ps_p0_{i}"]) for i in range(len(tree_leaves(like)))])
+    tok = t(inp["ps_tokens"]).long()
+    kept = []
+
+    def adamw_keeping_grads(grads, *a, **k):
+        kept.append([g.clone() for g in tree_leaves(grads)])
+        return adamw_update(grads, *a, **k)
+
+    TS.adamw_update = adamw_keeping_grads
+    # "one_rank": the step with no mesh on the whole batch, the exact mean;
+    # "mb2": two microbatches, on the mesh and on one rank
+    runs = (("auto", m, 0), ("compressed", m, 0), ("one_rank", None, 0),
+            ("auto_mb2", m, 2), ("one_rank_mb2", None, 2))
+    for mask in ("ones", "ragged"):
+        batch = {"tokens": tok, "labels": tok, "loss_mask": t(inp[f"ps_mask_{mask}"])}
+        for mode, mm, mb in runs:
+            run = RunConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10, microbatch=mb,
+                            pod_sync="compressed" if mode == "compressed" else "auto")
+            own = tree_unflatten(p0, [p.clone() for p in tree_leaves(p0)])
+            own, _, met = make_train_step(cfg, run, mesh=mm)(own, adamw_init(own), batch, 1)
+            key = f"ps_{mode}" if mask == "ones" else f"ps_{mask}_{mode}"
+            res[f"{key}_loss"] = float(met["loss"])
+            res[f"{key}_grad_norm"] = float(met["grad_norm"])
+            res[f"{key}_grads"] = [g.numpy() for g in kept.pop()]
+            if mask == "ones" and mode in ("auto", "compressed"):
+                res[f"ps_{mode}"] = [p.numpy() for p in tree_leaves(own)]
+    TS.adamw_update = adamw_update
+
+    # model-level context-parallel decode on (data 4, model 2)
+    m = Mesh((4, 2), ("data", "model"), device="cpu")
+    prompt, forced = t(inp["cpm_prompt"]).long(), t(inp["cpm_forced"]).long()
+    with torch.no_grad():
+        _, cache, npos = TM.prefill(cfg, p0, prompt, 64)
+        for name, pos in (("scalar", lambda i: torch.tensor(npos + i)),
+                          ("rows", lambda i: torch.full((2,), npos + i))):
+            local = TM.shard_cache(cfg, cache, m, "data")
+            steps = []
+            for i in range(3):
+                lg, local = TM.decode_step(cfg, p0, forced[i][:, None], local, pos(i),
+                                           cp_axis="data", mesh=m)
+                steps.append(lg.numpy())
+            res[f"cpm_{name}"] = np.stack(steps)
+        steps = []
+        for i in range(3):
+            lg, cache = TM.decode_step(cfg, p0, forced[i][:, None], cache, torch.tensor(npos + i))
+            steps.append(lg.numpy())
+        res["cpm_one"] = np.stack(steps)
+
+    # elastic reshard: 8 -> 4 ranks, bit-equal
+    _, logical = _logical_only(cfg)
+    m8 = make_mesh(*best_mesh_for(8, model=2), device="cpu")
+    p8 = reshard(p0, logical, m8)
+    m4 = make_mesh(*best_mesh_for(4, model=2), device="cpu")
+    p4 = reshard(p8, logical, m4)
+    res["m8"], res["m4"] = m8.shape, m4.shape
+    if m4.member:
+        res["reshard_equal"] = all(
+            torch.equal(full_tensor(a), b) for a, b in zip(tree_leaves(p4), tree_leaves(p0)))
+        res["reshard_local"] = sum(a.to_local().numel() for a in tree_leaves(p4))
+    else:
+        res["reshard_equal"] = all(a is None for a in tree_leaves(p4))
+    res["staged_bytes"] = C.host_staged.bytes
+    return res
+
+
+if __name__ == "__main__":
+    inp = dict(np.load(sys.argv[1]))
+    got = ranks.spawn(body, 8, inp, timeout=300)
+    out = {"ag": got[0]["ag"], "hier": got[0]["hier"], "comp": got[0]["comp"],
+           "rp_mlp": got[0]["rp_mlp"], "rp_attn": got[0]["rp_attn"]}
+    out["ag_all"] = np.stack([g["ag"] for g in got] + [g["ag1"] for g in got])
+    out["hier_all"] = np.stack([g["hier"] for g in got])
+    out["comp_all"] = np.stack([g["comp"] for g in got])
+    out["rs"] = np.stack([g["rs"] for g in got])
+    out["rp_all"] = np.stack([np.concatenate([g["rp_mlp"].ravel(), g["rp_attn"].ravel()])
+                              for g in got])
+    out["cp"] = np.concatenate([next(g["cp"] for g in got if g["cp_row"] == r) for r in (0, 1)])
+    out["cp_all"] = np.stack([g["cp"] for g in got])
+    out["moe_y"] = np.concatenate([next(g["moe_y"] for g in got if g["moe_row"] == r)
+                                   for r in range(4)])
+    for k in ("moe_dropped", "moe_aux"):
+        out[k] = np.array([g[k] for g in got])
+    out["moe_load"] = np.stack([g["moe_load"] for g in got])
+    for key in [k[:-5] for k in got[0] if k.startswith("ps_") and k.endswith("_loss")]:
+        out[f"{key}_loss"] = np.array([g[f"{key}_loss"] for g in got])
+        out[f"{key}_grad_norm"] = np.array([g[f"{key}_grad_norm"] for g in got])
+        for i, leaf in enumerate(got[0][f"{key}_grads"]):
+            out[f"{key}_g{i}"] = leaf
+            out[f"{key}_g{i}_same"] = all(np.array_equal(g[f"{key}_grads"][i], leaf)
+                                         for g in got)
+    for mode in ("auto", "compressed"):
+        for i, leaf in enumerate(got[0][f"ps_{mode}"]):
+            out[f"ps_{mode}_{i}"] = leaf
+            out[f"ps_{mode}_{i}_same"] = all(np.array_equal(g[f"ps_{mode}"][i], leaf)
+                                            for g in got)
+    for k in ("cpm_scalar", "cpm_rows", "cpm_one"):
+        out[k] = got[0][k]
+    out["cpm_same"] = all(np.array_equal(g["cpm_scalar"], got[0]["cpm_scalar"]) for g in got)
+    out["reshard_equal"] = np.array([g["reshard_equal"] for g in got])
+    out["reshard_local"] = np.array([g.get("reshard_local", 0) for g in got])
+    out["m_shapes"] = np.array([str(got[0]["m8"]), str(got[0]["m4"])])
+    out["staged_bytes"] = np.array([g["staged_bytes"] for g in got])
+    np.savez(sys.argv[2], **out)
+    print("PORT DONE")
+'''
+
+
+def _run(tmp, name, script, args, env_extra):
+    path = tmp / name
+    path.write_text(script)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **env_extra)
+    proc = subprocess.run([sys.executable, str(path)] + [str(a) for a in args],
+                          capture_output=True, text=True, timeout=TIMEOUT, env=env,
+                          cwd=str(tmp))
+    assert proc.returncode == 0, f"{name} failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}"
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(JAX's npz, the port's npz), each run once per module."""
+    tmp = tmp_path_factory.mktemp("dist")
+    jax_out, port_out = tmp / "jax.npz", tmp / "port.npz"
+    _run(tmp, "jax_side.py", JAX_SCRIPT, [jax_out], {"JAX_PLATFORMS": "cpu"})
+    _run(tmp, "port_side.py", PORT_SCRIPT, [jax_out, port_out], {})
+    return dict(np.load(jax_out)), dict(np.load(port_out))
+
+
+def _check(what, err, tol):
+    print(f"[parity] {what}: err {err:.3g} (tol {tol})")
+    assert err <= tol
+
+
+def test_all_gather_is_exact(runs):
+    j, p = runs
+    assert np.array_equal(j["ag"], j["x"])
+    for got in p["ag_all"]:                      # every rank, both ring kinds
+        assert np.array_equal(got, j["x"])
+
+
+def test_ring_reduce_scatter(runs):
+    """Each rank's chunk of the sum over its data ring (every rank of the
+    ring holds the same x, so the sum is 4x)."""
+    j, p = runs
+    chunks = j["x"].reshape(4, 4, 8)
+    for r, got in enumerate(p["rs"]):
+        _check(f"ring_reduce_scatter rank {r}", float(np.abs(got - 4 * chunks[r % 4]).max()), 1e-5)
+
+
+def test_hierarchical_all_reduce(runs):
+    j, p = runs
+    for got in p["hier_all"]:
+        _check("hierarchical all-reduce vs 8y", float(np.abs(got - 8 * j["y"]).max()), 1e-5)
+    _check("hierarchical all-reduce vs JAX", float(np.abs(p["hier"] - j["hier"]).max()), 1e-5)
+
+
+def test_compressed_ring_all_reduce(runs):
+    """Each within 0.02 of 2y, and the port within one int8 step of the
+    final scale (the largest |value| / 127) of JAX's."""
+    j, p = runs
+    two_y = 2 * j["y"]
+    for name, got in (("JAX", j["comp"]),) + tuple(("port", g) for g in p["comp_all"]):
+        _check(f"compressed ring ({name}) vs 2y, rel",
+               float(np.abs(got - two_y).max() / np.abs(two_y).max()), 0.02)
+    step = float(np.abs(j["comp"]).max()) / 127
+    _check("compressed ring, port vs JAX, in int8 steps",
+           float(np.abs(p["comp"] - j["comp"]).max()) / step, 1.0)
+
+
+@pytest.mark.parametrize("form", ["rp_mlp", "rp_attn"])
+def test_row_parallel_bf16_collectives(runs, form):
+    """Within one bf16 step (2^-7 of the value's binade) of JAX's; every
+    rank holds the same output."""
+    j, p = runs
+    ref = j[form]
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 7)
+    _check(f"row_parallel {form} vs JAX, in bf16 steps",
+           float((np.abs(p[form] - ref) / ulp).max()), 1.0)
+    assert (p["rp_all"] == p["rp_all"][0]).all()
+
+
+def test_context_parallel_decode(runs):
+    j, p = runs
+    _check("CP decode vs JAX's CP decode", float(np.abs(p["cp"] - j["cp"]).max()), 1e-4)
+    _check("CP decode vs local decode", float(np.abs(p["cp"] - j["cp_ref"]).max()), 1e-4)
+
+
+@pytest.mark.parametrize("ref", ["jax", "one_rank"])
+def test_context_parallel_decode_step(runs, ref):
+    """``decode_step`` with ``cp_axis``: the port's logits (every rank's
+    the same; a per-row position the scalar's exactly) within rel 4e-2 of
+    JAX's CP decode step (bf16 products round at other places in the two
+    frameworks), and within rel 1e-5 of the port's one-rank decode (the
+    same f32 attention over the same bf16 cache, merged in another order)."""
+    j, p = runs
+    assert bool(p["cpm_same"]) and np.array_equal(p["cpm_rows"], p["cpm_scalar"])
+    other, tol = (j["cpm_logits"], 4e-2) if ref == "jax" else (p["cpm_one"], 1e-5)
+    for i in range(3):
+        rel = float(np.abs(p["cpm_scalar"][i] - other[i]).max() / np.abs(other[i]).max())
+        _check(f"CP decode_step {i} vs {ref}, rel", rel, tol)
+
+
+@pytest.mark.parametrize("ref", ["moe_y", "moe_dense"])
+def test_expert_parallel_moe(runs, ref):
+    j, p = runs
+    _check(f"EP MoE vs JAX's {ref}", float(np.abs(p["moe_y"] - j[ref]).max()), 5e-2)
+
+
+def test_expert_parallel_moe_metrics(runs):
+    j, p = runs
+    assert float(j["moe_dropped"]) == 0.0 and (p["moe_dropped"] == 0.0).all()
+    _check("EP MoE aux vs JAX", float(np.abs(p["moe_aux"] - j["moe_aux"]).max()), 1e-5)
+    _check("EP MoE load vs JAX", float(np.abs(p["moe_load"] - j["moe_load"]).max()), 1e-5)
+
+
+def _params_diff(a, b, n):
+    return max(float(np.abs(a[i] - b[i]).max()) for i in range(n))
+
+
+@pytest.mark.parametrize("pair", [("jax", "compressed"), ("auto", "compressed")])
+def test_compressed_pod_sync(runs, pair):
+    """JAX's compressed step against the port's, and the port's exact
+    step against its compressed one: loss rel 1e-3, params 5e-3."""
+    j, p = runs
+    n = sum(1 for k in j if k.startswith("ps_p1_"))
+    assert n and all(bool(p[f"ps_{m}_{i}_same"]) for m in ("auto", "compressed")
+                     for i in range(n))
+    pc = [p[f"ps_compressed_{i}"] for i in range(n)]
+    if pair[0] == "jax":
+        la, other = float(j["ps_loss"]), [j[f"ps_p1_{i}"] for i in range(n)]
+    else:
+        la, other = float(p["ps_auto_loss"][0]), [p[f"ps_auto_{i}"] for i in range(n)]
+    lc = p["ps_compressed_loss"]
+    assert (lc == lc[0]).all()
+    _check(f"pod sync loss, {pair[0]} vs port compressed, rel", abs(la - lc[0]) / abs(la), 1e-3)
+    _check(f"pod sync params, {pair[0]} vs port compressed", _params_diff(other, pc, n), 5e-3)
+    moved = _params_diff([j[f"ps_p0_{i}"] for i in range(n)], pc, n)
+    assert moved > 0, "the step did not move the params"
+
+
+def _grads(src, key):
+    n = sum(1 for k in src if k.startswith(key + "_g") and k[len(key) + 2:].isdigit())
+    assert n
+    return [src[f"{key}_g{i}"] for i in range(n)]
+
+
+def _worst_steps(a, b):
+    """The largest of ``max|a_i - b_i|`` over the leaves i, in int8 steps
+    of ``b_i`` (its largest |value| / 127)."""
+    return max(float(np.abs(x - y).max()) / max(float(np.abs(y).max()) / 127, 1e-30)
+               for x, y in zip(a, b))
+
+
+def _worst_norm(a, b):
+    """The largest of ``|a_i - b_i| / |b_i|`` (2-norms) over the leaves i."""
+    return max(float(np.linalg.norm(x - y) / max(np.linalg.norm(y), 1e-30))
+               for x, y in zip(a, b))
+
+
+def _port_key(mask, mode):
+    return f"ps_{mode}" if mask == "ones" else f"ps_{mask}_{mode}"
+
+
+@pytest.mark.parametrize("mb", ["", "_mb2"])
+@pytest.mark.parametrize("mask", ["ones", "ragged"])
+def test_pod_sync_exact_mean_is_the_batch_mean(runs, mask, mb):
+    """The step on (pod 2, data 2, model 2) with the exact mean against the
+    step with no mesh on the whole batch, with the shards' mask counts
+    equal ("ones") and not ("ragged"), in one batch and in two
+    microbatches: every rank's synced grads the same, each leaf within
+    rel POD_SYNC_TOL["rel"] by norm, the loss within rel 1e-5."""
+    _, p = runs
+    mesh, one = _port_key(mask, "auto" + mb), _port_key(mask, "one_rank" + mb)
+    g = _grads(p, mesh)
+    assert all(bool(p[f"{mesh}_g{i}_same"]) for i in range(len(g)))
+    _check(f"pod sync grads ({mask}{mb}), exact mean vs one rank, worst leaf rel by norm",
+           _worst_norm(g, _grads(p, one)), POD_SYNC_TOL["rel"])
+    la, lo = p[f"{mesh}_loss"], float(p[f"{one}_loss"][0])
+    assert (la == la[0]).all()
+    _check(f"pod sync loss ({mask}{mb}), exact mean vs one rank, rel",
+           abs(float(la[0]) - lo) / abs(lo), 1e-5)
+
+
+@pytest.mark.parametrize("mode", ["auto", "compressed"])
+@pytest.mark.parametrize("mask", ["ones", "ragged"])
+def test_pod_sync_grads_vs_jax(runs, mask, mode):
+    """The port's step against JAX's (bridged params, the same batch), with
+    the exact mean and through the int8 ring: every rank's synced grads
+    the same, each leaf within rel 4e-2 by norm of JAX's (REL of
+    ``tests/test_torch_train.py``), the grad norm within rel 4e-2, the
+    loss within rel 1e-3."""
+    j, p = runs
+    key = _port_key(mask, mode)
+    mine, ref = _grads(p, key), _grads(j, f"ps_{mask}_{mode}")
+    assert all(bool(p[f"{key}_g{i}_same"]) for i in range(len(mine)))
+    _check(f"pod sync grads ({mask}), port {mode} vs JAX {mode}, worst leaf rel by norm",
+           _worst_norm(mine, ref), POD_SYNC_TOL["rel"])
+    gp, gj = float(p[f"{key}_grad_norm"][0]), float(j[f"ps_{mask}_{mode}_grad_norm"])
+    _check(f"pod sync grad norm ({mask}), port {mode} vs JAX, rel", abs(gp - gj) / gj,
+           POD_SYNC_TOL["rel"])
+    lp, lj = float(p[f"{key}_loss"][0]), float(j[f"ps_{mask}_{mode}_loss"])
+    _check(f"pod sync loss ({mask}), port {mode} vs JAX, rel", abs(lp - lj) / abs(lj), 1e-3)
+
+
+def test_pod_sync_ring_within_int8_steps(runs):
+    """The port's compressed step against its exact one (the same shards'
+    grads, so they differ by the ring alone): each leaf within
+    POD_SYNC_TOL["int8"] int8 steps (its largest |exact grad| / 127) and
+    the grad norm within rel POD_SYNC_TOL["norm"]. At two pods the ring
+    rounds each value twice (one reduce-scatter hop, one all-gather), each
+    within half a step of its own scale; the limit lets either scale be
+    twice the exact grad's. A ring that sums where it should average,
+    drops a pod or skips a leaf is off by a whole grad, ~127 steps."""
+    _, p = runs
+    comp, auto = _grads(p, "ps_compressed"), _grads(p, "ps_auto")
+    _check("pod sync grads, port compressed vs exact, in int8 steps",
+           _worst_steps(comp, auto), POD_SYNC_TOL["int8"])
+    gc, ga = float(p["ps_compressed_grad_norm"][0]), float(p["ps_auto_grad_norm"][0])
+    _check("pod sync grad norm, port compressed vs exact, rel", abs(gc - ga) / ga,
+           POD_SYNC_TOL["norm"])
+
+
+def test_elastic_reshard_is_bit_equal(runs):
+    _, p = runs
+    assert list(p["m_shapes"]) == ["{'pod': 2, 'data': 2, 'model': 2}",
+                                   "{'pod': 2, 'data': 1, 'model': 2}"]
+    assert p["reshard_equal"].all()
+    # the 4 ranks of the new mesh hold the state, the others none
+    assert (p["reshard_local"][:4] > 0).all() and (p["reshard_local"][4:] == 0).all()
+
+
+@pytest.mark.parametrize("chunk_bytes", [0, 64, 200, 10 ** 6])
+def test_chunked_matches_jax(chunk_bytes):
+    """``chunked`` cuts dim 0 into the same segments as JAX's (in process:
+    a shape-keeping function that tells segments apart)."""
+    import jax.numpy as jnp
+    import torch
+    from repro.core.collectives import chunked as jax_chunked
+    from repro_torch.core.collectives import chunked
+    x = np.arange(13 * 3, dtype=np.float32).reshape(13, 3)
+    port = chunked(lambda a: a - a[:1], torch.from_numpy(x), chunk_bytes).numpy()
+    ref = np.asarray(jax_chunked(lambda a: a - a[:1], jnp.asarray(x), chunk_bytes))
+    assert np.array_equal(port, ref)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_int8_ring_quantizer_is_jax_bit_for_bit(seed):
+    """The ring's per-tensor int8 (``_quant_int8``: scale max|x| / 127 +
+    1e-30, round half to even) and its dequantization equal JAX's."""
+    import jax.numpy as jnp
+    import torch
+    from repro.core import collectives as JC
+    from repro_torch.core import collectives as TC
+    x = np.random.default_rng(seed).standard_normal(1000).astype(np.float32) * 3
+    q, sc = TC._quant_int8(torch.from_numpy(x))
+    jq, jsc = JC._quant_int8(jnp.asarray(x))
+    assert np.array_equal(q.numpy(), np.asarray(jq)) and float(sc) == float(jsc)
+    assert np.array_equal(TC._dequant_int8(q, sc).numpy(), np.asarray(JC._dequant_int8(jq, jsc)))
+
+
+def test_cpu_ranks_stage_nothing(runs):
+    """On CPU ranks the transport is a plain gloo send: no host copies."""
+    assert (runs[1]["staged_bytes"] == 0).all()
