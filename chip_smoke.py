@@ -178,7 +178,24 @@ nothing of JAX. Phases, each fatal on failure:
              rel 1e-3, params 5e-3; (e) (d)'s params resharded from
              ``best_mesh_for(4, model=2)`` to ``best_mesh_for(2,
              model=2)``, bit-equal. "[dist]" lines give each figure with
-             the card, and the host-staged and ring bytes.
+             the card, and the host-staged and ring bytes;
+10. dryrun  - the port's dry-run (``repro_torch.launch.dryrun``: a fake
+             process group of 256 or 512 ranks, fake tensors, nothing on
+             the card), started in subprocesses as the script starts and
+             read here: full-width internlm2-1.8b at every applicable
+             shape on both production meshes (16x16, 2x16x16), and
+             granite-moe-1b-a400m train_4k on 16x16 (the expert-parallel
+             path), their "[dryrun]" lines printed; then the dry-run held
+             to the card: the train phase's cell (internlm2 full width, 8
+             x 4096 tokens, 2 microbatches, remat minimal, int8 moments)
+             on a 1x1 mesh, traced at full depth, predicts a peak (its
+             arguments and the peak of the live tensors) within
+             ``DRYRUN["peak_tol"]`` of the peak the int8 train run
+             measured (less what was allocated before it); the same cell
+             cut to 2 layers, traced, counts exactly the FLOPs that
+             ``FlopCounterMode`` counts around one real step of it on the
+             card; the predicted compute time is printed beside the
+             profiled train step's device time, with no limit.
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound (K1 and K3 once per timed length, K2 at the path's
@@ -186,8 +203,9 @@ lengths and once per fill; K1's and K2's rows also carry the staged
 runs' launches, ``staged_launches``, K4a's and K4b's the train_cluster
 failure run's, ``cluster_launches``, every row the colocate phase's
 four runs' together, ``colocate_launches``, the zoo phase's timed
-passes', ``zoo_launches``, and the dist phase's per rank,
-``dist_launches``); the last line is
+passes', ``zoo_launches``, the dist phase's per rank,
+``dist_launches``, and the dryrun phase's real 2-layer step's,
+``dryrun_launches``); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -352,6 +370,44 @@ DIST_MOE_TOL = 5e-2                             # dist_checks.py:66
 # in a 2-row shard: the limit of every grad held to JAX's), as
 # tests/test_torch_distributed.py holds them
 DIST_SYNC_TOL = dict(loss=1e-3, params=5e-3, int8=2.0, norm=1e-2, exact=4e-2)
+# the dryrun phase: cells traced in subprocesses while the card works;
+# the train phase's cell (TRAIN) checked against the card, whole and cut
+# to check_layers layers
+DRYRUN = dict(arch="internlm2-1.8b", moe_arch="granite-moe-1b-a400m", check_layers=2,
+              peak_tol=0.10, timeout=1000.0)
+#: figures a phase measures for a later one (the dryrun phase's checks)
+MEASURED: dict = {}
+# the dryrun phase's subprocess beside the prefill cells: internlm2's other
+# shapes on both meshes, granite-moe's EP cell, and the train phase's cell
+# on a 1x1 mesh (whole depth and the depth fit) and cut to 2 layers
+DRYRUN_SCRIPT = r'''
+import dataclasses, json, sys
+from repro_torch.configs import RunConfig, SHAPES, get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun as D
+
+spec, train = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+for shape in SHAPES:
+    if shape == "prefill_32k":
+        continue
+    for mp in (False, True):
+        r = D.lower_cell(spec["arch"], shape, multi_pod=mp)
+        if "skipped" in r:
+            print(f"[dryrun] SKIP {spec['arch']} x {shape}: {r['skipped']}", flush=True)
+D.lower_cell(spec["moe_arch"], "train_4k")
+cfg = get_config(train["arch"])
+shape = ShapeConfig("train_4k_b8", train["seq"], train["batch"], "train")
+run = RunConfig(microbatch=train["microbatch"], moments_int8=True)
+one = (("data", 1), ("model", 1))
+out = {}
+for name, c, ext in (("whole", cfg, False), ("fit", cfg, True),
+                     ("cut", dataclasses.replace(cfg, num_layers=spec["check_layers"]), False)):
+    r = D.lower_cell(train["arch"], f"{shape.name}_{name}", cfg=c, shape=shape, run=run,
+                     mesh_shape=one, extrapolate=ext)
+    out[name] = {k: r[k] for k in ("flops_per_chip", "compute_s", "memory", "groups_traced",
+                                   "compile_s")}
+print("DRYRUN " + json.dumps(out), flush=True)
+'''
 
 def fail(msg: str) -> int:
     print(f"[chip_smoke] FAILED: {msg}", file=sys.stderr)
@@ -1453,6 +1509,7 @@ def phase_train(torch, dev):
                         moments_int8=moments == "int8")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
         counters = launch_counters()
         for fn in counters.values():
             fn.launches = 0
@@ -1488,8 +1545,11 @@ def phase_train(torch, dev):
             raise AssertionError("the int8 run's records carry no simulated seconds")
         steady = [h["seconds"] for h in hist[1:]]
         print(f"[train] {moments}: steps 1..{steps - 1} {np.mean(steady) * 1e3:.1f} ms/step = "
-              f"{tokens / np.mean(steady):.1f} tok/s; peak memory {peak / 2 ** 30:.3f} GiB; "
+              f"{tokens / np.mean(steady):.1f} tok/s; peak memory {peak / 2 ** 30:.3f} GiB "
+              f"({held / 2 ** 30:.3f} GiB allocated before the run); "
               f"kernel launches {launches[moments]}")
+        if moments == "int8":
+            MEASURED.update(train_peak=peak, train_held=held)
         if not all(math.isfinite(x) for x in losses[moments]):
             raise AssertionError(f"non-finite loss with {moments} moments: {losses[moments]}")
         quant = 2 * n_leaves * (1 + steps) if moments == "int8" else 0
@@ -2105,6 +2165,7 @@ def profile_train(torch, tr):
              if busy > 0 else "not measured (the profiler recorded no device time)")
     print(f"[profile] train step {tr.history[-1]['step']}: host wall {wall:.1f} ms, "
           f"device busy {share}")
+    MEASURED["train_device_ms"] = busy if busy > 0 else None
     for ms, n, key in sorted((r for r in rows if r[0] > 0), reverse=True)[:12]:
         print(f"[profile]   device {ms:9.3f} ms  {n:6d}x  {key[:90]}")
     host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key) for e in events
@@ -2467,6 +2528,122 @@ def phase_dist(torch, dev, card: str):
     return launches
 
 
+def start_dryrun():
+    """Start the dryrun phase's subprocesses (nothing on the card): the
+    prefill_32k cell of ``DRYRUN["arch"]`` on each production mesh, each
+    in a process of its own, and ``DRYRUN_SCRIPT``. Returns (name,
+    process, log path) triples; the processes write into a temporary
+    directory and are killed when the script exits."""
+    import atexit
+    import os
+    logs = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    spec = {k: DRYRUN[k] for k in ("arch", "moe_arch", "check_layers")}
+    cli = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN["arch"],
+           "--shape", "prefill_32k"]
+    jobs = []
+    for name, argv in (("prefill 16x16", cli), ("prefill 2x16x16", cli + ["--multi-pod"]),
+                       ("cells", [sys.executable, "-c", DRYRUN_SCRIPT, json.dumps(spec),
+                                  json.dumps(TRAIN)])):
+        log = logs / (name.replace(" ", "_") + ".log")
+        with open(log, "w") as f:
+            jobs.append((name, subprocess.Popen(argv, cwd=ROOT, env=env, stdout=f,
+                                                stderr=subprocess.STDOUT), log))
+
+    def stop():
+        for _, proc, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+        shutil.rmtree(logs, ignore_errors=True)
+    atexit.register(stop)
+    return jobs
+
+
+def phase_dryrun(torch, dev, jobs):
+    """Wait for ``start_dryrun``'s processes and print their "[dryrun]"
+    lines; then hold the dry-run to the card: the train phase's cell's
+    predicted peak against the int8 run's measured peak
+    (``DRYRUN["peak_tol"]``), the 2-layer cut's traced FLOPs against
+    ``FlopCounterMode`` around one real step of it, and the predicted
+    compute time beside the profiled step's device time. Returns the
+    real step's launch counts."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.launch.train import build
+
+    deadline = T_START + DRYRUN["timeout"]
+    result, bad = None, []
+    for name, proc, log in jobs:
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = "killed at the phase's timeout"
+        text = log.read_text()
+        for line in text.splitlines():
+            if line.startswith(("[dryrun]", "  memory_analysis", "  collectives")):
+                print(line)
+            elif line.startswith("DRYRUN "):
+                result = json.loads(line[len("DRYRUN "):])
+        if rc != 0:
+            bad.append(f"{name}: exit {rc}: {text[-2000:]}")
+    if bad or result is None:
+        raise AssertionError(f"dryrun phase failed: {bad or 'no DRYRUN line'}")
+    for name, r in result.items():
+        print(f"[dryrun] the train phase's cell ({name}, groups traced {r['groups_traced']}): "
+              f"{r['flops_per_chip']:.6e} FLOPs, compute {r['compute_s'] * 1e3:.3f} ms, "
+              f"arguments {r['memory']['argument_bytes'] / 2 ** 30:.3f} GiB + live peak "
+              f"{r['memory']['temp_bytes'] / 2 ** 30:.3f} GiB = "
+              f"{r['memory']['peak_bytes'] / 2 ** 30:.3f} GiB predicted; traced in "
+              f"{r['compile_s']:.1f} s")
+
+    # memory: the whole-depth trace against the int8 train run
+    measured = MEASURED["train_peak"] - MEASURED["train_held"]
+    predicted = result["whole"]["memory"]["peak_bytes"]
+    rel = predicted / measured - 1.0
+    print(f"[dryrun] memory: predicted peak {predicted / 2 ** 30:.3f} GiB (depth fit "
+          f"{result['fit']['memory']['peak_bytes'] / 2 ** 30:.3f}) against the int8 train "
+          f"run's {measured / 2 ** 30:.3f} GiB ({MEASURED['train_peak'] / 2 ** 30:.3f} peak less "
+          f"{MEASURED['train_held'] / 2 ** 30:.3f} held before it): {100 * rel:+.2f}% "
+          f"(tol {100 * DRYRUN['peak_tol']:.0f}%)")
+    if not abs(rel) <= DRYRUN["peak_tol"]:
+        raise AssertionError(f"the dry-run's peak is {100 * rel:+.2f}% off the measured one")
+
+    # FLOPs: one real step of the 2-layer cut on the card
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), num_layers=DRYRUN["check_layers"])
+    run = RunConfig(learning_rate=TRAIN["lr"], microbatch=TRAIN["microbatch"],
+                    moments_int8=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN["batch"], TRAIN["seq"]), generator=gen,
+                           device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1),
+             "loss_mask": torch.ones(tokens.shape, device=dev)}
+    params, opt, step_fn = build(cfg, run, dev)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with FlopCounterMode(display=False) as fc:
+        _, _, metrics = step_fn(params, opt, batch, 0)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    real, traced = fc.get_total_flops(), result["cut"]["flops_per_chip"]
+    print(f"[dryrun] FLOPs of one train step of {cfg.name} cut to {cfg.num_layers} layers, "
+          f"{TRAIN['batch']} x {TRAIN['seq']}: traced {int(traced)}, counted on the card "
+          f"{real} (loss {float(metrics['loss']):.6f}; launches {launches})")
+    if not (real == traced > 0 and math.isfinite(float(metrics["loss"]))):
+        raise AssertionError(f"traced FLOPs {traced} != the card's {real}")
+    del params, opt, step_fn, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    device_ms = MEASURED.get("train_device_ms")
+    print(f"[dryrun] compute: predicted {result['whole']['compute_s'] * 1e3:.3f} ms a step "
+          f"(FLOPs / 989 TFLOP/s, core/hw.py), the profiled int8 train step's device time "
+          f"{'%.3f ms' % device_ms if device_ms else 'not measured'} (no limit)")
+    return launches
+
+
 def phase_timer():
     """``lap(name)`` prints the seconds since the last lap (the first
     since the script started) and since the script started."""
@@ -2504,6 +2681,9 @@ def main() -> int:
     print(f"[device] {torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
           f"device(s), torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}; TF32 off for matmul and cuDNN")
+
+    # the dryrun phase's traces run in subprocesses beside every phase
+    dryrun_jobs = start_dryrun()
 
     # 2. build
     t0 = time.perf_counter()
@@ -2579,6 +2759,10 @@ def main() -> int:
     launches_dist = phase_dist(torch, dev, smi[0])
     lap("dist")
 
+    # 10. dryrun: the traces started at the top, held to the card
+    launches_dryrun = phase_dryrun(torch, dev, dryrun_jobs)
+    lap("dryrun")
+
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2588,6 +2772,7 @@ def main() -> int:
              colocate_launches=launches_coloc["flash_attention"],
              zoo_launches=launches_zoo["flash_attention"],
              dist_launches=launches_dist["flash_attention"],
+             dryrun_launches=launches_dryrun["flash_attention"],
              shape=f"B=1 S={s} Hq=16 Hkv=8 hd=128 bf16",
              **rows[("flash_attention", s)])
         for s in FA_PATH_LENS
@@ -2600,6 +2785,7 @@ def main() -> int:
              colocate_launches=launches_coloc["flash_attention"],
              zoo_launches=launches_zoo["flash_attention"],
              dist_launches=launches_dist["flash_attention"],
+             dryrun_launches=launches_dryrun["flash_attention"],
              **rows[("flash_attention", arch, s)])
         for arch, _, _, _, _, lens in ZOO_FA_CASES for s in lens
     ] + [
@@ -2611,6 +2797,7 @@ def main() -> int:
              colocate_launches=launches_coloc["decode_attention"],
              zoo_launches=launches_zoo["decode_attention"],
              dist_launches=launches_dist["decode_attention"],
+             dryrun_launches=launches_dryrun["decode_attention"],
              **rows[("decode_attention", key)])
         for key in ("path", "glm4-9b path") + DEC_FILLS
     ] + [
@@ -2620,6 +2807,7 @@ def main() -> int:
              launches=launches_ssm["ssd_scan"], colocate_launches=launches_coloc["ssd_scan"],
              zoo_launches=launches_zoo["ssd_scan"],
              dist_launches=launches_dist["ssd_scan"],
+             dryrun_launches=launches_dryrun["ssd_scan"],
              shape=f"B=1 S={s} H=80 P=64 N=128 bf16",
              **rows[("ssd_scan", s)])
         for s in SSD_PATH_LENS
@@ -2631,7 +2819,8 @@ def main() -> int:
              cluster_launches=launches_cluster["quantize"],
              colocate_launches=launches_coloc["quantize"],
              zoo_launches=launches_zoo["quantize"],
-             dist_launches=launches_dist["quantize"], **rows["quantize"]),
+             dist_launches=launches_dist["quantize"],
+             dryrun_launches=launches_dryrun["quantize"], **rows["quantize"]),
         dict(name="dequantize", route="cuda",
              source="src/repro_torch/kernels/csrc/quant.cu",
              replaces="src/repro/kernels/quant/kernel.py:22",
@@ -2639,7 +2828,8 @@ def main() -> int:
              cluster_launches=launches_cluster["dequantize"],
              colocate_launches=launches_coloc["dequantize"],
              zoo_launches=launches_zoo["dequantize"],
-             dist_launches=launches_dist["dequantize"], **rows["dequantize"]),
+             dist_launches=launches_dist["dequantize"],
+             dryrun_launches=launches_dryrun["dequantize"], **rows["dequantize"]),
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")):

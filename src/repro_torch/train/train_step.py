@@ -132,7 +132,8 @@ def _mean_over(xs, mesh, axes):
 
 
 def make_train_step(cfg: ModelConfig, run: RunConfig, *, impl: str = "auto",
-                    mesh=None, loss_chunk: int = 512):
+                    mesh=None, capacity_factor: Optional[float] = 1.25,
+                    loss_chunk: int = 512):
     """Returns ``train_step(params, opt_state, batch, step,
     node_shares=None) -> (params, opt_state, metrics)``. ``params`` and
     f32 moments are updated in place (``optim/adamw.py``). ``node_shares``
@@ -140,7 +141,8 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, impl: str = "auto",
     path, so they are bit-identical to passing none; skewed shares run
     each node's sub-batch and combine the sums into the same global
     mean. With ``mesh``, every rank calls it with the same params and
-    the same global batch (module docstring)."""
+    the same global batch (module docstring). MoE layers dispatch at
+    ``capacity_factor``."""
     moments = "int8" if run.moments_int8 else "f32"
 
     def grads_of(params, batch, weigh=None):
@@ -149,6 +151,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, impl: str = "auto",
         with torch.enable_grad():
             loss, parts = loss_fn(cfg, tree_unflatten(params, leaves), batch,
                                   impl=impl, remat=run.remat_policy,
+                                  capacity_factor=capacity_factor,
                                   loss_chunk=loss_chunk, ce_weight=w)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)

@@ -276,7 +276,7 @@ COPIES = ["core/fabric.py", "core/runtime.py", "obs/trace.py", "obs/export.py",
           "scale/arrivals.py", "serve/disagg.py", "tenancy/qos.py", "tenancy/admission.py",
           "tenancy/colocation.py", "tenancy/__init__.py", "offload/kvfilter.py",
           "scale/autoscale.py", "scale/fleet.py", "scale/__init__.py", "offload/__init__.py",
-          "launch/fleet.py"]
+          "launch/fleet.py", "core/paths.py", "core/charz.py", "core/roofline.py"]
 
 
 def _body(path):
