@@ -19,7 +19,10 @@ nothing of JAX. Phases, each fatal on failure:
              also as MHA, and with windows that start inside a 64-key
              tile, with softcap 50; the build fails unless ptxas built
              K1's tensor-core kernel at hd 64, 128 and 256, each with
-             and without a softcap, with no spill), the SSD scan
+             and without a softcap, and every K2 instance (the CUDA-core
+             split pass at G <= 8, the tensor-core one at G = 16, f32 and
+             bf16 caches, hd 64, 128 and 256), with no spill; each K2
+             instance's registers printed), the SSD scan
              in f32 against the sequential recurrence (5e-3 on y and on
              the state, also at ragged lengths; the CUDA-core kernel),
              its bf16 tensor-core path at B = 2 (S = 8, 64, 65, 300, 512
@@ -38,14 +41,16 @@ nothing of JAX. Phases, each fatal on failure:
              uniform fills 1 to 1024, beside its one-split schedule (the
              same kernel with a block per (b, kv head)), also with the
              card spun before each start event (``device_ms``), with the
-             host time per call and each pass's device time; K3 at the
+             host time per call and the device time of its one launch
+             (the merge is folded into the split pass); K3 at the
              serve pass's lengths 8 to 1024, beside the CUDA-core kernel
              and the wrapper it had on the same inputs, also spun, with
              the host time per call and each launch's device time; K1 at
              head dim 256, gemma2-9b's prefill shape with its window and
              softcap at S = 512 and 4,608 and gemma-7b's at 512, it and
              SDPA also spun; K2 at
-             glm4-9b's decode shape, G = 16);
+             glm4-9b's decode shape, G = 16, on the tensor cores, at the
+             serve path's lengths and fills 64 and 1024);
              kernel, plain version and the library
              yardstick where one PyTorch call computes the same function
              (``scaled_dot_product_attention``, ``torch.mul``, which the
@@ -177,8 +182,12 @@ nothing of JAX. Phases, each fatal on failure:
              whole batch, each leaf rel 4e-2 by norm; loss
              rel 1e-3, params 5e-3; (e) (d)'s params resharded from
              ``best_mesh_for(4, model=2)`` to ``best_mesh_for(2,
-             model=2)``, bit-equal. "[dist]" lines give each figure with
-             the card, and the host-staged and ring bytes;
+             model=2)``, bit-equal; (f) reduced granite-moe's train step
+             on (data 2, model 2) through the EP branch's backward, with
+             UserWarning an error, aux weight 1, against one rank's step
+             in 2 microbatches (the mesh's data shards): each leaf rel
+             4e-2 by norm, loss rel 1e-3. "[dist]" lines give each figure
+             with the card, and the host-staged and ring bytes;
 10. dryrun  - the port's dry-run (``repro_torch.launch.dryrun``: a fake
              process group of 256 or 512 ranks, fake tensors, nothing on
              the card), started in subprocesses as the script starts and
@@ -220,6 +229,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -278,6 +288,7 @@ DEC_SPLIT_CASES = [(4, 1024, 16, 8, 128, None, None, (1, 1024, 300, 77)),
 # heads, G = 16) at the serve path's lengths
 DEC_PATH_LENS = (1, 1024, 300, 77)
 DEC_FILLS = (1, 64, 256, 512, 1024)
+GLM4_FILLS = (64, 1024)
 # K1 timed at head dim 256 (its tensor-core instance in bf16): gemma2-9b's
 # prefill shape (B=1, 16 q / 8 kv heads, the local layers' 4096-token
 # window and softcap 50) at a bucket and at the zoo phase's long prompt,
@@ -358,7 +369,9 @@ DIST = dict(ranks=4, timeout=600.0,
             # (c) one MoE layer of granite-moe-1b-a400m at full width
             moe_arch="granite-moe-1b-a400m", moe_batch=(4, 512),
             # (d) pod sync: internlm2 cut to 2 layers, batch 8 x 512
-            sync_layers=2, sync_batch=(8, 512))
+            sync_layers=2, sync_batch=(8, 512),
+            # (f) the EP train step: reduced granite-moe, batch 4 x 64
+            ep_batch=(4, 64))
 DIST_COLL_TOL = dict(hier=10 ** -5, comp=0.02)  # scripts/dist_checks.py:24-42
 DIST_ATTN_TOL = 1e-4                            # dist_checks.py:91, f32
 DIST_MOE_TOL = 5e-2                             # dist_checks.py:66
@@ -370,6 +383,13 @@ DIST_MOE_TOL = 5e-2                             # dist_checks.py:66
 # in a 2-row shard: the limit of every grad held to JAX's), as
 # tests/test_torch_distributed.py holds them
 DIST_SYNC_TOL = dict(loss=1e-3, params=5e-3, int8=2.0, norm=1e-2, exact=4e-2)
+# (f): the EP train step's grads against the one-rank step of the same
+# objective, the worst leaf rel by norm (the limit (d) holds the exact mean
+# to against one rank: bf16 products round at other places in a shard,
+# and on a reduced MoE a rounding that flips a near-tied route moves every
+# grad by a few percent; a backward that misses a rank's experts or takes
+# a wrong share of the aux loss reads tenths), and its loss rel
+DIST_EP_TOL = dict(grads=DIST_SYNC_TOL["exact"], loss=1e-3)
 # the dryrun phase: cells traced in subprocesses while the card works;
 # the train phase's cell (TRAIN) checked against the card, whole and cut
 # to check_layers layers
@@ -648,7 +668,7 @@ def phase_kernels(torch, dev):
         print(f"[kernels] flash_attention softcap cost B=1 S=4608 Hq=16 Hkv=8 hd={d} bf16: "
               f"softcap 50 {capped:.4f} ms, none {plain_cap:.4f} ms (spun)")
     rows.update(check_decode(torch, dev, randn, err, flush))
-    rows.update(check_decode(torch, dev, randn, err, flush, hq=32, hkv=2, fills=(),
+    rows.update(check_decode(torch, dev, randn, err, flush, hq=32, hkv=2, fills=GLM4_FILLS,
                              label="glm4-9b"))
     rows.update(check_ssd(torch, dev, gen, randn, err, flush))
     rows.update(check_quant(torch, randn, flush))
@@ -678,8 +698,9 @@ def check_decode(torch, dev, randn, err, flush, hq=16, hkv=8, fills=DEC_FILLS, l
     (``one_split_decode``), the plain version and SDPA: ``ms`` as for every
     kernel, ``device_ms`` with the card spun before each start event (no
     gap the host leaves is timed), both schedules in turns over seven
-    rounds; the host time per call and each pass's device time. One row
-    per setting, keyed ``label path`` for another arch's shape."""
+    rounds; the host time per call and the device time of its one launch
+    (the split pass with the merge folded in). One row per setting, keyed
+    ``label path`` and ``label fill n`` for another arch's shape."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import decode_attention_kernel, split_rows
     from repro_torch.kernels.decode_attention.ref import decode_attention
@@ -691,7 +712,8 @@ def check_decode(torch, dev, randn, err, flush, hq=16, hkv=8, fills=DEC_FILLS, l
     qf = q.float().transpose(1, 2).contiguous()                       # exact upcast
     ke, ve = (x.repeat_interleave(hq // hkv, 2).transpose(1, 2).contiguous() for x in (kc, vc))
     rows = {}
-    for key, lens in [(f"{label} path".strip(), DEC_PATH_LENS)] + [(n, (n,) * b) for n in fills]:
+    for key, lens in [(f"{label} path".strip(), DEC_PATH_LENS)] + [
+            (f"{label} fill {n}" if label else n, (n,) * b) for n in fills]:
         lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         ref = decode_attention(q, kc, vc, lens)
         e = err(decode_attention_kernel(q, kc, vc, lens), ref)
@@ -717,6 +739,9 @@ def check_decode(torch, dev, randn, err, flush, hq=16, hkv=8, fills=DEC_FILLS, l
                       flush=flush)
         host, one_host = host_us_per_call([new, old])
         passes = kernel_us(torch, new)
+        if len(passes) != 1:
+            raise AssertionError(f"decode_attention launched {sorted(passes)}, not one kernel")
+        (kname, launch_us), = passes.items()
         rows_read = int(lens.sum().item())             # cache rows this run needs
         kv_bytes = 2 * rows_read * hkv * d * 4
         ops = 4.0 * rows_read * hq * d
@@ -725,14 +750,14 @@ def check_decode(torch, dev, randn, err, flush, hq=16, hkv=8, fills=DEC_FILLS, l
               f"max_len={s} lens={lens.tolist()}{f' Hq={hq} Hkv={hkv}' if label else ''} "
               f"f32 cache: err {e:.3g} (one split "
               f"{e_one:.3g}) kernel {ms:.4f} ms ({dev_ms:.4f} spun; split_rows "
-              f"{rows_per_split}; passes {passes} us), one split {one:.4f} ms ({one_dev:.4f} "
+              f"{rows_per_split}; one launch, {kname} {launch_us} us), one split {one:.4f} ms ({one_dev:.4f} "
               f"spun), host {host:.2f} against {one_host:.2f} us a call, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by}; {kv_bytes / 1e6:.2f} MB of cache rows)")
         rows[("decode_attention", key)] = dict(
             max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
             device_ms=dev_ms, split_rows=rows_per_split, one_split_ms=one,
             one_split_device_ms=one_dev, host_us=host, one_split_host_us=one_host,
-            launch_us=passes,
+            launch_us=launch_us, kernel=kname,
             shape=f"B={b} max_len={s} lens={lens.tolist()} Hq={hq} Hkv={hkv} hd={d} "
                   "f32 cache, bf16 q")
     return rows
@@ -2484,10 +2509,54 @@ def _dist_rank(rank: int, world: int, root: str, card: str) -> dict:
     out["checks"]["reshard bit-equal"] = same
     say(f"(e) elastic reshard of (d)'s params {m4.shape} -> {m2.shape}: bit-equal {same} on "
         f"rank 0, {ms:.0f} ms, host-staged {st} bytes")
+    mark("e")
+
+    # (f) the EP train step: reduced granite-moe on (data 2, model 2) under
+    #     use_mesh (the EP branch and its backward), UserWarning an error
+    #     (torch warns when it backprops through a collective with no
+    #     autograd kernel), an aux weight of 1 so the aux loss's backward
+    #     shows, capacity None; against the one-rank step in 2 microbatches,
+    #     each a data shard of the mesh (the same objective)
+    ecfg = dataclasses.replace(get_config(DIST["moe_arch"]).reduced(), router_aux_loss=1.0)
+    mesh = Mesh((2, 2), ("data", "model"), device=dev)
+    p0 = init_params(ecfg, gen(5), dev)
+    b, s = DIST["ep_batch"]
+    tk = torch.randint(0, ecfg.vocab_size, (b, s), generator=gen(6), device=dev)
+    batch = {"tokens": tk, "labels": tk, "loss_mask": torch.ones((b, s), device=dev)}
+    kept, losses, times = [], [], []
+
+    def adamw_keeping(grads, *a, **k):
+        kept.append([g.clone() for g in tree_leaves(grads)])
+        return adamw(grads, *a, **k)
+
+    TS.adamw_update = adamw_keeping
+    try:
+        for mm, mb in ((mesh, 0), (None, 2)):
+            own = tree_unflatten(p0, [p.clone() for p in tree_leaves(p0)])
+            run = RunConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10, microbatch=mb)
+            with warnings.catch_warnings(), use_mesh(mm):
+                warnings.simplefilter("error", UserWarning)
+                (_, _, met), ms, st, _ = timed(lambda: make_train_step(
+                    ecfg, run, mesh=mm, capacity_factor=None)(own, adamw_init(own), batch, 1))
+            losses.append(float(met["loss"]))
+            times.append((ms, st))
+    finally:
+        TS.adamw_update = adamw
+    rel = max(float((a - o).norm() / o.norm()) for a, o in zip(*kept))
+    lrel = abs(losses[0] - losses[1]) / abs(losses[1])
+    say(f"(f) EP train step, {ecfg.name} ({ecfg.num_experts} experts, top-"
+        f"{ecfg.num_experts_per_tok}, aux weight 1) batch {b} x {s} on {mesh.shape}, UserWarning "
+        f"an error: {times[0][0]:.0f} ms (host-staged {times[0][1]} bytes), one rank in 2 "
+        f"microbatches {times[1][0]:.0f} ms; grads vs one rank, worst leaf rel by norm {rel:.3g} "
+        f"(tol {DIST_EP_TOL['grads']}), loss {losses[0]:.6f} vs {losses[1]:.6f} rel {lrel:.3g} "
+        f"(tol {DIST_EP_TOL['loss']})")
+    out["ep_step"] = dict(grads_rel=rel, loss_rel=lrel, ms=times[0][0], one_rank_ms=times[1][0])
+    out["checks"]["EP train step"] = rel < DIST_EP_TOL["grads"] and lrel < DIST_EP_TOL["loss"]
+    del kept, p0, batch
     torch.cuda.synchronize()
     out["launches"] = {name: fn.launches for name, fn in counters.items()}
     out["staged_bytes"] = C.host_staged.bytes
-    mark("e")
+    mark("f")
     out["peak_gib"] = peaks
     return out
 
@@ -2500,7 +2569,8 @@ def phase_dist(torch, dev, card: str):
     at a gradient's size; (b) context-parallel serve of full-width
     internlm2-1.8b; (c) the expert-parallel MoE of granite-moe at full
     width; (d) the compressed pod sync against the exact one; (e) the
-    elastic reshard. Fails if any rank fails, hangs or a check does not
+    elastic reshard; (f) reduced granite-moe's EP train step against one
+    rank's. Fails if any rank fails, hangs or a check does not
     hold. Returns each kernel's launches per rank."""
     from repro_torch.parallel import ranks
     gc.collect()
@@ -2513,8 +2583,8 @@ def phase_dist(torch, dev, card: str):
     if any(g["cp_tokens"] != got[0]["cp_tokens"] for g in got):
         bad.add("the ranks' CP tokens differ")
     launches = {k: [g["launches"][k] for g in got] for k in got[0]["launches"]}
-    peaks = ", ".join(f"({k}) {[g['peak_gib'][k] for g in got]}" for k in "abcde")
-    most = max(sum(g["peak_gib"][k] for g in got) for k in "abcde")
+    peaks = ", ".join(f"({k}) {[g['peak_gib'][k] for g in got]}" for k in "abcdef")
+    most = max(sum(g["peak_gib"][k] for g in got) for k in "abcdef")
     print(f"[dist] {DIST['ranks']} ranks in {wall:.1f} s; launches per rank {launches}; "
           f"host-staged bytes per rank {[g['staged_bytes'] for g in got]}; peak memory (GiB) "
           f"per part and rank: {peaks}, at most {most:.2f} summed over the ranks of one part; "
@@ -2710,6 +2780,21 @@ def main() -> int:
         raise AssertionError(f"flash_attention's wgmma instances are not hd 64, 128 and 256 "
                              f"with and without a softcap, each unspilled: {wg}")
 
+    # K2 per instance: <cache dtype, head dim(, groups)>, CUDA-core and
+    # tensor-core split passes; none may spill
+    dec = re.findall(r"Compiling entry function '\w*?(decode_split(?:_tc)?_kernel)I(f|13__nv_bfloat16)"
+                     r"Li(\d+)E(?:Li(\d+)E)?[^']*'.*?(\d+) bytes spill stores.*?Used (\d+) registers",
+                     _build.build_log("decode_attention"), re.S)
+    print("[build] decode_attention: " + ", ".join(
+        f"{'tc' if 'tc' in k else 'cuda-core'} {'bf16' if 'bf16' in t else 'f32'} hd {hd}"
+        f"{f' G {g}' if g else ' G 16'}: {r} registers, {sp} bytes spilled"
+        for k, t, hd, g, sp, r in dec))
+    if len(dec) != 2 * 3 * 5 or any(int(sp) for *_, sp, _ in dec) or \
+            sum("tc" in k for k, *_ in dec) != 2 * 3:
+        raise AssertionError(f"decode_attention's instances are not f32 and bf16 x hd 64, 128 "
+                             f"and 256 x G 1, 2, 4, 8 on the CUDA cores and 16 on the tensor "
+                             f"cores, each unspilled: {dec}")
+
     # 3. kernels
     lap("device and build")
     rows = phase_kernels(torch, dev)
@@ -2799,7 +2884,8 @@ def main() -> int:
              dist_launches=launches_dist["decode_attention"],
              dryrun_launches=launches_dryrun["decode_attention"],
              **rows[("decode_attention", key)])
-        for key in ("path", "glm4-9b path") + DEC_FILLS
+        for key in ("path", "glm4-9b path") + DEC_FILLS + tuple(
+            f"glm4-9b fill {n}" for n in GLM4_FILLS)
     ] + [
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",

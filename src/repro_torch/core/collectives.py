@@ -22,6 +22,19 @@ The JAX primitives map as: ``axis_index`` -> ``dist.get_rank(group)``,
 ``all_reduce``, ``all_gather(tiled=True)`` -> ``all_gather``,
 ``psum_scatter`` -> ``reduce_scatter``.
 
+**Backward.** ``all_reduce`` (sum), ``all_gather``, ``pvary`` and
+``shard`` differentiate as JAX transposes the same code inside a
+``shard_map``, in its convention that a value replicated over a group
+carries its whole cotangent on every rank: the backward of ``psum`` is
+the identity, of ``all_gather(tiled=True)`` the ``psum_scatter`` of the
+cotangent, of ``pvary`` (a replicated value entering work that differs
+per rank) the ``psum``, and of ``shard`` (this rank's slice of a
+replicated tensor) the ``all_gather`` of the slices' cotangents. A
+leaf replicated over an axis whose ranks see different data (the batch
+axes) thus ends with this rank's share of its grad, and the caller sums
+or averages the shares, as the train step's sync does. Without grad
+the forward is the one plain call: the same bytes and counters.
+
 **Transport.** The groups are gloo's. Every tensor that crosses one goes
 through ``host_staged``: a CUDA tensor is copied into pinned host
 memory, the gloo op runs there and the result is copied back to the
@@ -70,8 +83,11 @@ def host_staged(op: Callable, *xs: torch.Tensor):
 host_staged.bytes = 0
 
 
-def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """``psum`` (or ``pmax`` with ``op=MAX``) over ``group``; a new tensor."""
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     def run(h):
         h = h.clone() if h is x else h
         dist.all_reduce(h, op=op, group=group)
@@ -79,9 +95,7 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return host_staged(run, x.contiguous())
 
 
-def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """``all_gather(tiled=True)``: the group's shards concatenated along
-    ``dim`` in group-rank order."""
+def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     n = dist.get_world_size(group)
     if n == 1:
         return x
@@ -94,16 +108,99 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return host_staged(run, xt).movedim(0, dim)
 
 
-def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
-    """``psum_scatter`` over dim 0: x (n*m, ...) -> this rank's summed
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """``psum_scatter`` over ``dim``: x (n*m, ...) -> this rank's summed
     (m, ...) block."""
     n = dist.get_world_size(group)
+    xt = x.movedim(dim, 0).contiguous()
 
     def run(h):
         out = torch.empty((h.shape[0] // n,) + tuple(h.shape[1:]), dtype=h.dtype)
         dist.reduce_scatter_tensor(out, h, group=group)
         return out
-    return host_staged(run, x.contiguous())
+    return host_staged(run, xt).movedim(0, dim)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _Pvary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def _own_slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    k = x.shape[dim] // dist.get_world_size(group)
+    return x.narrow(dim, dist.get_rank(group) * k, k)
+
+
+class _Shard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _own_slice(x, group, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``psum`` (or ``pmax`` with ``op=MAX``) over ``group``; a new tensor.
+    The sum's backward is the identity; ``pmax`` has none (JAX's has no
+    transpose either)."""
+    if _needs_grad(x):
+        if op != dist.ReduceOp.SUM:
+            raise NotImplementedError("all_reduce: only the sum has a backward")
+        return _Psum.apply(x, group)
+    return _all_reduce(x, group, op)
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """``all_gather(tiled=True)``: the group's shards concatenated along
+    ``dim`` in group-rank order. Backward: the cotangent's
+    ``reduce_scatter`` along ``dim``."""
+    if _needs_grad(x) and dist.get_world_size(group) > 1:
+        return _AllGather.apply(x, group, dim)
+    return _all_gather(x, group, dim)
+
+
+def pvary(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, replicated over ``group``, as the input of work that differs
+    per rank: the identity, whose backward sums the ranks' cotangents
+    (``jax.lax.pvary``'s transpose)."""
+    return _Pvary.apply(x, group) if _needs_grad(x) else x
+
+
+def shard(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's 1/n of ``x`` (replicated over ``group``) along ``dim``,
+    in group-rank order; ``dim`` must divide by n. Backward: the
+    ``all_gather`` of the ranks' cotangents, the whole tensor's grad."""
+    return _Shard.apply(x, group, dim) if _needs_grad(x) else _own_slice(x, group, dim)
 
 
 def shift(xs: Sequence[torch.Tensor], group, step: Union[int, Sequence[int]] = 1):

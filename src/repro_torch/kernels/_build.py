@@ -38,10 +38,10 @@ SIGNATURES = {
         "fa_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     },
     "decode_attention": {
-        # q, k, v, cache_len, o, scratch, q_dtype, c_dtype, B, S, Hq, Hkv, hd,
-        # split_rows, window, scale, softcap, stream
-        "decode_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _F, _F, _P),
+        # q, k, v, cache_len, o, scratch, counters, q_dtype, c_dtype, B, S, Hq,
+        # Hkv, hd, split_rows, window, scale, softcap, stream
+        "decode_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _F, _F, _P),
     },
     "ssd_scan": {
         # x, dt, A, Bm, C, y, h, scratch, scratch_bytes, x_dtype, B, S, H,

@@ -4,10 +4,16 @@ in the model zoo's (B,1,Hq,hd) / (B,S,Hkv,hd) layout, with a per-row
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version (``ref.decode_attention``). The kernel splits the cache length
-over blocks (``split_rows`` rows each, from the shapes alone) and merges
-the splits' partial softmax states in a second pass, through an f32
-scratch allocated here. ``decode_attention_kernel.launches`` counts the
-calls that launched it (both passes, one count).
+over at most 16 blocks (``split_rows`` rows each, from the shapes alone)
+and merges the splits' softmax states in the same launch, which
+``decode_attention_kernel.launches`` counts. At G <= 8 a split runs on
+the CUDA cores and the block that counts a row's last split merges,
+through an f32 scratch allocated here and a per-(b, kv head) int32
+counter (``_counters``: made and zeroed once per device, stream and
+size; every launch leaves them 0). At G in (8, 16] a split runs on the
+tensor cores (``mma.sync``, 3xTF32; hd % 16 == 0) and a row's splits are
+one thread-block cluster that merges through its shared memory: no
+scratch, no counter.
 """
 from __future__ import annotations
 
@@ -21,8 +27,10 @@ from repro_torch.kernels.decode_attention.ref import decode_attention
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_GROUPS = 16           # glm4-9b: 32 q heads over 2 kv heads
+MAX_CUDA_CORE_GROUPS = 8  # above: the tensor-core split pass, hd % 16 == 0
 SMS = 132                 # streaming multiprocessors of an H100 SXM
 MIN_SPLIT_ELEMS = 8192    # a split reads at least 64 rows of hd 128 per kv head
+MAX_SPLITS = 16           # a cluster's blocks (MAX_SPLITS in the source)
 
 
 def split_rows(b: int, s: int, hkv: int, hd: int) -> int:
@@ -32,10 +40,11 @@ def split_rows(b: int, s: int, hkv: int, hd: int) -> int:
     A full cache gives at least two blocks an SM: the largest power of
     two at most ``s / ceil(2 * SMS / (b * hkv))``. A floor of
     ``MIN_SPLIT_ELEMS / hd`` rows (64 at hd 128) keeps short caches from
-    paying for empty splits; at most ``s``, at least 1."""
+    paying for empty splits, and one of ``ceil(s / MAX_SPLITS)`` keeps a
+    row's splits in one cluster; at most ``s``, at least 1."""
     want = -(-2 * SMS // max(1, b * hkv))             # splits for 2 blocks an SM
     rows = 1 << (max(1, s // want).bit_length() - 1)  # a power of two <= s / want
-    return max(1, min(s, max(rows, MIN_SPLIT_ELEMS // hd)))
+    return max(1, min(s, max(rows, MIN_SPLIT_ELEMS // hd, -(-s // MAX_SPLITS))))
 
 
 def _check(q, k_cache, v_cache, window, softcap):
@@ -64,6 +73,9 @@ def _check(q, k_cache, v_cache, window, softcap):
     if d > MAX_HEAD_DIM or d % 4:
         raise ValueError(f"decode_attention: head dim {d} must be a multiple "
                          f"of 4 and at most {MAX_HEAD_DIM}")
+    if hq // hkv > MAX_CUDA_CORE_GROUPS and d % 16:
+        raise ValueError(f"decode_attention: {hq // hkv} q heads to a kv head take the "
+                         f"tensor cores, whose head dim must be a multiple of 16, got {d}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} must be contiguous "
@@ -110,6 +122,27 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
     return out
 
 
+def slot_floats(g: int, hd: int) -> int:
+    """Floats of one split's partial state in the scratch: acc (G, hd), m
+    (G), l (G), padded to a multiple of 4 (``slot_floats`` in the source)."""
+    return g * hd + (2 * g + 3) // 4 * 4
+
+
+#: (device index, stream, B * Hkv) -> int32 counters, zero between launches
+_counter_cache = {}
+
+
+def _counters(device, stream: int, n: int) -> torch.Tensor:
+    """The per-(b, kv head) counters of the launches on ``stream``: made
+    (and zeroed, one fill) at the first call of a size; every launch
+    leaves them 0, so later calls launch nothing but the kernel."""
+    key = (device.index, stream, n)
+    c = _counter_cache.get(key)
+    if c is None:
+        c = _counter_cache[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return c
+
+
 def launch(q, k_cache, v_cache, clen, rows: int, window, softcap) -> torch.Tensor:
     """The C entry on checked inputs on the current device, with ``rows``
     cache rows a split; counts nothing. ``clen``: (B,) int32 on q's device."""
@@ -118,16 +151,23 @@ def launch(q, k_cache, v_cache, clen, rows: int, window, softcap) -> torch.Tenso
     out = torch.empty(q.shape, dtype=k_cache.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    # the splits' partial states, f32 (B, Hkv, nsplit, G, hd + 2): acc, m, l
     nsplit = max(1, -(-s // rows))
-    scratch = torch.empty(b * hkv * nsplit * (hq // hkv) * (d + 2), dtype=torch.float32,
-                          device=q.device)
+    if nsplit > MAX_SPLITS:
+        raise ValueError(f"decode_attention: {rows} rows a split cut {s} rows into more "
+                         f"than {MAX_SPLITS} splits")
     # the raw handle: torch.cuda.current_stream(...).cuda_stream builds a
     # Stream object, several us of host time on a path of one-token calls
     stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    g = hq // hkv
+    if g > MAX_CUDA_CORE_GROUPS:            # the cluster merges: no scratch, no counter
+        scratch = counters = 0
+    else:                                   # the splits' partials: acc, m, l
+        scratch = torch.empty(b * hkv * nsplit * slot_floats(g, d), dtype=torch.float32,
+                              device=q.device).data_ptr()
+        counters = _counters(q.device, stream, b * hkv).data_ptr()
     err = _build.library("decode_attention").decode_forward(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), clen.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), DTYPES[q.dtype], DTYPES[k_cache.dtype], b, s, hq, hkv, d, rows,
+        scratch, counters, DTYPES[q.dtype], DTYPES[k_cache.dtype], b, s, hq, hkv, d, rows,
         window or 0, 1.0 / (d ** 0.5), softcap or 0.0, stream)
     _build.check(err, "decode_attention launch")
     return out

@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.collectives import all_reduce
+from repro_torch.core.collectives import all_reduce, shard
 from repro_torch.models import precision
 from repro_torch.parallel.sharding import current_mesh
 
@@ -30,7 +30,9 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor, x_shard_dim: int,
     whole on every rank: the replicated compute outside), multiplies them
     in f32, sums the partial products over ``model`` once in f32 and
     rounds the sum to bf16. Otherwise it is the plain product in x's
-    dtype. The mesh path is forward-only: its sum is a gloo collective."""
+    dtype. Backward (JAX's transpose of ``layers.py:46-56``): the sum's
+    is the identity, so dx and dw of a rank's slices are its own, and the
+    slices' grads are gathered over ``model`` into the whole x's and w's."""
     mesh = current_mesh()
     msize = mesh.shape.get("model", 1) if mesh is not None else 1
     applicable = (precision.enabled() and msize > 1
@@ -39,11 +41,10 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor, x_shard_dim: int,
                   and x.shape[1] % msize == 0)
     if not applicable:
         return _contract(x, w, x_shard_dim)
-    r = mesh.index("model")
-    kx, kw = x.shape[x_shard_dim] // msize, w.shape[w_shard_dim] // msize
-    part = _contract(x.float().narrow(x_shard_dim, r * kx, kx),
-                     w.float().narrow(w_shard_dim, r * kw, kw), x_shard_dim)
-    return all_reduce(part, mesh.get_group("model")).to(torch.bfloat16)
+    group = mesh.get_group("model")
+    part = _contract(shard(x.float(), group, x_shard_dim),
+                     shard(w.float(), group, w_shard_dim), x_shard_dim)
+    return all_reduce(part, group).to(torch.bfloat16)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

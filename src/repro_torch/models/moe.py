@@ -12,7 +12,13 @@ Two execution paths, as in the JAX module:
   ``model`` combines the partial outputs (no all-to-all, no
   cross-rank cumsum). The FSDP gathers of the router and expert weights
   over ``data`` happen explicitly inside, so the collective schedule is
-  visible.
+  visible. Its backward is the transpose JAX takes of ``moe.py:199-251``
+  (``core/collectives.py``'s backward rules): the sum over ``model``
+  is the identity, the tokens and router weights that enter the
+  rank's experts sum their grads over ``model``, a whole weight cut to
+  the rank's experts gathers its experts' grads over ``model``, an FSDP
+  gather reduce-scatters over ``data``, and the aux loss's mean over the
+  batch axes hands each shard 1/n of the cotangent.
 
 Tokens are routed top-k (``router_topk``), scattered into a per-expert
 capacity buffer of ``cap`` rows each (``_dispatch_compute_combine``), run
@@ -42,7 +48,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.collectives import all_gather, all_reduce
+from repro_torch.core.collectives import all_gather, all_reduce, pvary, shard
 from repro_torch.parallel.sharding import current_mesh
 
 
@@ -209,15 +215,15 @@ def _moe_ep(x: torch.Tensor, params: dict, mesh, *, num_experts: int, top_k: int
     """The expert-parallel branch (``moe.py:199-251``) on this rank's
     local tensors. Each weight is this rank's shard (as its logical axes
     place it: experts over ``model``, d_model over ``data``) or the whole
-    tensor, which is cut to this rank's experts locally and needs no
-    gather."""
+    tensor, which is cut to this rank's experts locally (``shard``: its
+    grad is gathered over ``model``)."""
     e = num_experts
     b_loc, s_loc, d = x.shape
     e_local = e // mesh.shape["model"] if ep else e
     lo = mesh.index("model") * e_local if ep else 0
     w_in, w_out = params["w_in"], params["w_out"]
     if w_in.shape[0] != e_local:
-        w_in, w_out = w_in[lo:lo + e_local], w_out[lo:lo + e_local]
+        w_in, w_out = (shard(w, mesh.get_group("model"), 0) for w in (w_in, w_out))
     router = _fsdp_gather(params["router"], 0, d, mesh)
     w_in = _fsdp_gather(w_in, 1, d, mesh)
     w_out = _fsdp_gather(w_out, 2, d, mesh)
@@ -226,6 +232,8 @@ def _moe_ep(x: torch.Tensor, params: dict, mesh, *, num_experts: int, top_k: int
     weights, idx, probs = router_topk(x2d, router, top_k)
     aux = load_balance_loss(probs, idx, e)
     cap = _capacity(t, top_k, e, capacity_factor)
+    if ep:      # the replicated tokens and router weights meet this rank's experts
+        x2d, weights = (pvary(v, mesh.get_group("model")) for v in (x2d, weights))
     y, keep, _ = _dispatch_compute_combine(
         x2d, weights, idx, lo=lo, e_local=e_local, cap=cap,
         w_in=w_in, w_out=w_out, activation=activation)
@@ -245,6 +253,14 @@ def _moe_ep(x: torch.Tensor, params: dict, mesh, *, num_experts: int, top_k: int
         aux, dropped, load = packed[0], packed[1], packed[2:]
     return y.reshape(b_loc, s_loc, d).to(x.dtype), \
         MoEMetrics(aux_loss=aux, dropped_frac=dropped, expert_load=load)
+
+
+def aux_shards() -> int:
+    """How many batch shards ``moe_ffn``'s aux loss is the mean of under
+    ``current_mesh()``: the product of the batch axes (``pod``, ``data``)
+    of size > 1, whose mean every rank then holds whole; 1 without a mesh."""
+    mesh = current_mesh()
+    return 1 if mesh is None else mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
 
 
 def moe_ffn(x: torch.Tensor, params: dict, *, num_experts: int, top_k: int,

@@ -26,7 +26,12 @@ forward + CE, backward, clip, AdamW.
   sum(mask·ce) / sum(mask), also where the shards' counts differ; and a
   rank's microbatch j is its share of the global batch's microbatch j,
   as JAX splits the global batch before the partitioner shards it. The
-  MoE aux loss is the mean of the shards' own.
+  MoE aux loss is the mean of the shards' own: under ``use_mesh`` the
+  layer takes that mean itself (``models/moe.py``), and every rank holds
+  it whole; its backward hands each of the n shards 1/n of the
+  cotangent, and the step averages the ranks' grads, so the aux term
+  weighs n times in each rank's differentiated objective (the loss it
+  reports is the plain one).
 
 Grads come from ``torch.autograd.grad`` on the f32 master leaves.
 """
@@ -40,6 +45,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.collectives import all_reduce, compressed_ring_all_reduce_inner
 from repro_torch.models import model as M
 from repro_torch.models.attention import train_impl
+from repro_torch.models.moe import aux_shards
 from repro_torch.optim.adamw import adamw_update, tree_leaves, tree_unflatten
 from repro_torch.optim.schedule import lr_at
 from repro_torch.parallel.sharding import local_shard, logical_to_spec, rule_overrides
@@ -144,16 +150,19 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, impl: str = "auto",
     the same global batch (module docstring). MoE layers dispatch at
     ``capacity_factor``."""
     moments = "int8" if run.moments_int8 else "f32"
+    aux_w = cfg.router_aux_loss if cfg.num_experts else 0.0
 
     def grads_of(params, batch, weigh=None):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         w = None if weigh is None else weigh(batch["loss_mask"])
+        n_aux = aux_shards() if mesh is not None and aux_w else 1
         with torch.enable_grad():
             loss, parts = loss_fn(cfg, tree_unflatten(params, leaves), batch,
                                   impl=impl, remat=run.remat_policy,
                                   capacity_factor=capacity_factor,
                                   loss_chunk=loss_chunk, ce_weight=w)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+            obj = loss if n_aux == 1 else loss + (n_aux - 1) * aux_w * parts["aux"]
+            grads = torch.autograd.grad(obj, leaves, allow_unused=True,
                                         materialize_grads=True)
         parts = {k: v.detach() for k, v in parts.items()}
         return loss.detach(), parts, list(grads)

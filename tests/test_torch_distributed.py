@@ -15,7 +15,9 @@ order. The tests compare the two:
 - compressed ring: the port within one int8 step of the final scale of
   JAX, and each within 0.02 (relative) of 2y;
 - ``row_parallel`` under ``bf16_collectives`` at model 2 (the MLP and
-  the attention-output forms): within one bf16 step of JAX's output;
+  the attention-output forms): within one bf16 step of JAX's output, and
+  its grads (of x and w, a seeded cotangent) within one bf16 step of
+  ``jax.grad``'s through JAX's ``shard_map``;
 - context-parallel decode: 1e-4 of JAX's and of the local decode; at
   the model level (reduced internlm2, ``decode_step`` with ``cp_axis``,
   the cache's rows split 4 ways, 3 teacher-forced steps) the logits
@@ -24,6 +26,17 @@ order. The tests compare the two:
   alike;
 - expert-parallel MoE: 5e-2 of JAX's ``moe_ffn`` and of the dense
   oracle, dropped fraction 0, aux loss and expert load of JAX's (1e-5);
+  its backward (x, router, w_in, w_out; a seeded cotangent of y and a
+  weight of 4 on the aux loss, so that the load-balance term's grads
+  show): each leaf within ``EP_GRAD_TOL`` of its largest |grad| of
+  ``jax.grad``'s through JAX's ``shard_map``;
+- a reduced granite-moe train step on (pod 2, data 2, model 2) under
+  ``use_mesh`` (the EP branch, capacity None), with ``UserWarning`` an
+  error (torch warns when it backprops through a collective with no
+  autograd kernel): every rank's synced grads the same, within rel
+  ``EP_STEP_TOL`` by norm of the one-rank step in 4 microbatches (each a
+  mesh shard: the same objective) at an aux weight of 1, and of JAX's
+  one-device step in 4 microbatches at granite's own;
 - compressed pod sync on reduced internlm2 (bridged params, step 1):
   JAX's ``"compressed"`` against the port's, loss relative 1e-3 and
   params 5e-3, and the port's ``"auto"`` against its ``"compressed"`` at
@@ -54,6 +67,19 @@ TIMEOUT = 420       # seconds for each subprocess; the port's ranks get 300
 # in int8 steps of a leaf's largest |grad|; "norm" the grad norm's
 # relative difference
 POD_SYNC_TOL = dict(rel=4e-2, int8=2.0, norm=1e-2)
+# the EP backward against JAX's, in each leaf's largest |grad|: both
+# round y to bf16 before its sum over model (a bf16 step is 2^-8 of a
+# value) and round the bf16 expert products at other places, a few bf16
+# steps in all (CPU 0.0018-0.0074); a grad that misses the other model
+# rank's experts or takes a wrong share of the aux loss's is off by tenths
+EP_GRAD_TOL = 2e-2
+# the EP train step's worst leaf, rel by norm: against the port's own
+# one-rank step of the same objective (bf16 roundings at other places,
+# here 0.0092 at aux weight 1, where a wrong aux backward reads 0.6-0.74;
+# on a reduced MoE a rounding that flips a near-tied route moves every
+# grad by a few percent, so chip_smoke.py's 4-rank twin holds (d)'s 4e-2)
+# and against JAX's (REL of tests/test_torch_zoo.py; CPU 0.016)
+EP_STEP_TOL = dict(port=2e-2, jax=4e-2)
 
 JAX_SCRIPT = r'''
 import os, sys
@@ -76,6 +102,7 @@ from repro.train.train_step import make_train_step
 
 assert len(jax.devices()) == 8
 rng = np.random.default_rng(0)
+rng1 = np.random.default_rng(1)     # the backward's inputs: rng's sequence stays
 out = {}
 AUTO = (jax.sharding.AxisType.Auto,)
 
@@ -106,6 +133,15 @@ with jax.set_mesh(m), precision.bf16_collectives():
     out["rp_mlp"] = np.asarray(f(bf(out["rp_h"]), bf(out["rp_w"])).astype(jnp.float32))
     f = jax.jit(lambda a, b: row_parallel("bshk,hkd->bsd", a, b, x_shard_dim=2, w_shard_dim=0))
     out["rp_attn"] = np.asarray(f(bf(out["rp_o"]), bf(out["rp_wo"])).astype(jnp.float32))
+    # the backward through shard_map: grads of sum(y * ct)
+    out["rp_ct"] = ct = rng1.standard_normal((2, 8, 32)).astype(np.float32)
+    for form, sub, xa, wa in (("rp_mlp", "bsf,fd->bsd", "rp_h", "rp_w"),
+                              ("rp_attn", "bshk,hkd->bsd", "rp_o", "rp_wo")):
+        g = jax.jit(jax.grad(lambda a, b, sub=sub: jnp.sum(row_parallel(
+            sub, a, b, x_shard_dim=2, w_shard_dim=0).astype(jnp.float32) * ct), argnums=(0, 1)))
+        gx, gw = g(bf(out[xa]), bf(out[wa]))
+        out[form + "_gx"] = np.asarray(gx.astype(jnp.float32))
+        out[form + "_gw"] = np.asarray(gw.astype(jnp.float32))
 
 # context-parallel decode, dist_checks.py:72-92
 m = mesh((2, 4), ("data", "model"))
@@ -137,10 +173,21 @@ with jax.set_mesh(m):
           "w_out": jax.device_put(params["w_out"], NamedSharding(m, P("model", None, "data")))}
     y, mt = jax.jit(lambda a, b: moe_ffn(a, b, num_experts=E, top_k=K, activation=jax.nn.silu,
                                          capacity_factor=None))(xs, ps)
+    # the backward: grads of sum(y * ct) + 4 aux_loss w.r.t. x and the weights
+    out["moe_ct"] = ct = rng1.standard_normal((B, S, D)).astype(np.float32)
+
+    def moe_obj(a, p):
+        yy, mm = moe_ffn(a, p, num_experts=E, top_k=K, activation=jax.nn.silu,
+                         capacity_factor=None)
+        return jnp.sum(yy.astype(jnp.float32) * ct) + 4.0 * mm.aux_loss
+    gx, gp = jax.jit(jax.grad(moe_obj, argnums=(0, 1)))(xs, ps)
 out["moe_y"] = np.asarray(y, np.float32)
 out["moe_dropped"] = np.asarray(mt.dropped_frac)
 out["moe_aux"] = np.asarray(mt.aux_loss)
 out["moe_load"] = np.asarray(mt.expert_load)
+out["moe_g_x"] = np.asarray(gx)
+for k in ("router", "w_in", "w_out"):
+    out["moe_g_" + k] = np.asarray(gp[k])
 
 # compressed pod sync, dist_checks.py:95-126, at step 1 (step 0's lr is 0).
 # The step's synced grads come out in its metrics: the optimizer that the
@@ -185,6 +232,22 @@ for mask in ("ones", "ragged"):
             out["ps_grad_norm"] = out[f"ps_{mask}_{mode}_grad_norm"]
             for i, leaf in enumerate(jax.tree.leaves(p2)):
                 out[f"ps_p1_{i}"] = np.asarray(leaf)
+
+# reduced granite-moe, one step on one device in 4 microbatches (the
+# objective of the port's step on (pod 2, data 2, model 2)), capacity None
+gcfg = get_config("granite-moe-1b-a400m").reduced()
+gparams, _ = init_params(gcfg, jax.random.PRNGKey(1))
+for i, leaf in enumerate(jax.tree.leaves(gparams)):
+    out[f"ep_p0_{i}"] = np.asarray(leaf)
+out["ep_tokens"] = gtok = rng1.integers(0, gcfg.vocab_size, (8, 32)).astype(np.int32)
+run = RunConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10, microbatch=4)
+_, _, met = jax.jit(make_train_step(gcfg, run, impl="ref", capacity_factor=None))(
+    gparams, adamw_init(gparams), {"tokens": gtok, "labels": gtok,
+                                   "loss_mask": np.ones(gtok.shape, np.float32)},
+    jnp.asarray(1))
+out["ep_jax_loss"] = np.asarray(met["loss"])
+for i, g in enumerate(jax.tree.leaves(met["grads"])):
+    out[f"ep_jax_g{i}"] = np.asarray(g, np.float32)
 JT.adamw_update = _adamw
 
 # model-level context-parallel decode on (data 4, model 2)
@@ -209,7 +272,9 @@ print("JAX DONE")
 '''
 
 PORT_SCRIPT = r'''
+import dataclasses
 import sys
+import warnings
 
 import numpy as np
 import torch
@@ -253,6 +318,11 @@ def body(rank, world, inp):
     with use_mesh(m), precision.bf16_collectives():
         res["rp_mlp"] = row_parallel(bf(inp["rp_h"]), bf(inp["rp_w"]), 2).float().numpy()
         res["rp_attn"] = row_parallel(bf(inp["rp_o"]), bf(inp["rp_wo"]), 2).float().numpy()
+        for form, xa, wa in (("rp_mlp", "rp_h", "rp_w"), ("rp_attn", "rp_o", "rp_wo")):
+            xg, wg = bf(inp[xa]).requires_grad_(), bf(inp[wa]).requires_grad_()
+            obj = (row_parallel(xg, wg, 2).float() * t(inp["rp_ct"])).sum()
+            gx, gw = torch.autograd.grad(obj, [xg, wg])
+            res[form + "_gx"], res[form + "_gw"] = gx.float().numpy(), gw.float().numpy()
 
     # context-parallel decode on (data 2, model 4): the cache on (data, model)
     m = Mesh((2, 4), ("data", "model"), device="cpu")
@@ -277,6 +347,50 @@ def body(rank, world, inp):
     res["moe_dropped"] = float(mt.dropped_frac)
     res["moe_aux"] = float(mt.aux_loss)
     res["moe_load"] = mt.expert_load.numpy()
+    # its backward: each rank's objective is its share of sum(y * ct) and
+    # the aux term whole; a weight shard's grad is summed over pod, where
+    # it is replicated (JAX's in-spec), then each leaf is gathered whole
+    leaves = [x.requires_grad_()] + [params[k].requires_grad_()
+                                     for k in ("router", "w_in", "w_out")]
+    with use_mesh(m):
+        y, mt = moe_ffn(x, params, num_experts=8, top_k=2, activation=F.silu,
+                        capacity_factor=None)
+    ct = local_shard(t(inp["moe_ct"]), m, (("pod", "data"), None, None))
+    gx, gr, gi, go = torch.autograd.grad((y.float() * ct).sum() + 4.0 * mt.aux_loss, leaves)
+    dg, mg, pg = (m.get_group(a) for a in ("data", "model", "pod"))
+    gr, gi, go = (C.all_reduce(g, pg) for g in (gr, gi, go))
+    res["moe_g_x"] = C.all_gather(C.all_gather(gx, dg, 0), pg, 0).numpy()
+    res["moe_g_router"] = C.all_gather(gr, dg, 0).numpy()
+    res["moe_g_w_in"] = C.all_gather(C.all_gather(gi, dg, 1), mg, 0).numpy()
+    res["moe_g_w_out"] = C.all_gather(C.all_gather(go, dg, 2), mg, 0).numpy()
+
+    # reduced granite-moe's train step on the mesh (the EP branch), with
+    # UserWarning an error, at granite's aux weight and at 1; and the one-
+    # rank step in 4 microbatches, each a mesh shard, at 1
+    gcfg = get_config("granite-moe-1b-a400m").reduced()
+    like = init_params(gcfg, torch.Generator().manual_seed(0), "cpu")
+    g0 = tree_unflatten(like, [t(inp[f"ep_p0_{i}"]) for i in range(len(tree_leaves(like)))])
+    gtok = t(inp["ep_tokens"]).long()
+    gbatch = {"tokens": gtok, "labels": gtok, "loss_mask": torch.ones(gtok.shape)}
+    kept = []
+
+    def adamw_keeping_grads(grads, *a, **k):
+        kept.append([g.clone() for g in tree_leaves(grads)])
+        return adamw_update(grads, *a, **k)
+
+    TS.adamw_update = adamw_keeping_grads
+    aux1 = dataclasses.replace(gcfg, router_aux_loss=1.0)
+    for key, cfg_, mm, mb in (("ep_mesh", gcfg, m, 0), ("ep_mesh_aux1", aux1, m, 0),
+                              ("ep_mb4_aux1", aux1, None, 4)):
+        run = RunConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10, microbatch=mb)
+        own = tree_unflatten(g0, [p.clone() for p in tree_leaves(g0)])
+        with warnings.catch_warnings(), use_mesh(mm):
+            warnings.simplefilter("error", UserWarning)
+            _, _, met = make_train_step(cfg_, run, mesh=mm, capacity_factor=None)(
+                own, adamw_init(own), gbatch, 1)
+        res[f"{key}_loss"] = float(met["loss"])
+        res[f"{key}_grads"] = [g.numpy() for g in kept.pop()]
+    TS.adamw_update = adamw_update
 
     # pod sync on (pod 2, data 2, model 2), reduced internlm2 from JAX's
     # params; the synced grads kept by wrapping the step's optimizer
@@ -365,6 +479,15 @@ if __name__ == "__main__":
     for k in ("moe_dropped", "moe_aux"):
         out[k] = np.array([g[k] for g in got])
     out["moe_load"] = np.stack([g["moe_load"] for g in got])
+    for k in [k for k in got[0] if k.startswith(("moe_g_", "rp_m", "rp_a")) and "_g" in k]:
+        out[k] = got[0][k]
+        out[k + "_same"] = all(np.array_equal(g[k], got[0][k]) for g in got)
+    for key in ("ep_mesh", "ep_mesh_aux1", "ep_mb4_aux1"):
+        out[f"{key}_loss"] = np.array([g[f"{key}_loss"] for g in got])
+        for i, leaf in enumerate(got[0][f"{key}_grads"]):
+            out[f"{key}_g{i}"] = leaf
+            out[f"{key}_g{i}_same"] = all(np.array_equal(g[f"{key}_grads"][i], leaf)
+                                         for g in got)
     for key in [k[:-5] for k in got[0] if k.startswith("ps_") and k.endswith("_loss")]:
         out[f"{key}_loss"] = np.array([g[f"{key}_loss"] for g in got])
         out[f"{key}_grad_norm"] = np.array([g[f"{key}_grad_norm"] for g in got])
@@ -462,6 +585,22 @@ def test_row_parallel_bf16_collectives(runs, form):
     assert (p["rp_all"] == p["rp_all"][0]).all()
 
 
+@pytest.mark.parametrize("form", ["rp_mlp", "rp_attn"])
+def test_row_parallel_bf16_collectives_backward(runs, form):
+    """The grads of x and w (bf16, a seeded cotangent of the output)
+    within one bf16 step of ``jax.grad``'s through JAX's ``shard_map``:
+    the sum's backward is the identity and each rank's slice grads are
+    gathered whole; every rank holds the same grads."""
+    j, p = runs
+    for leaf in ("gx", "gw"):
+        key = f"{form}_{leaf}"
+        ref = j[key]
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 7)
+        _check(f"row_parallel {form} grad {leaf[1]} vs JAX, in bf16 steps",
+               float((np.abs(p[key] - ref) / ulp).max()), 1.0)
+        assert bool(p[key + "_same"])
+
+
 def test_context_parallel_decode(runs):
     j, p = runs
     _check("CP decode vs JAX's CP decode", float(np.abs(p["cp"] - j["cp"]).max()), 1e-4)
@@ -494,6 +633,43 @@ def test_expert_parallel_moe_metrics(runs):
     assert float(j["moe_dropped"]) == 0.0 and (p["moe_dropped"] == 0.0).all()
     _check("EP MoE aux vs JAX", float(np.abs(p["moe_aux"] - j["moe_aux"]).max()), 1e-5)
     _check("EP MoE load vs JAX", float(np.abs(p["moe_load"] - j["moe_load"]).max()), 1e-5)
+
+
+@pytest.mark.parametrize("leaf", ["x", "router", "w_in", "w_out"])
+def test_expert_parallel_moe_backward(runs, leaf):
+    """The EP branch's grads (``core/collectives.py``'s backward rules)
+    against ``jax.grad`` of the same objective through JAX's
+    ``shard_map``, each leaf whole (EP_GRAD_TOL of its largest |grad|);
+    every rank holds the same."""
+    j, p = runs
+    key = f"moe_g_{leaf}"
+    ref = j[key]
+    assert bool(p[key + "_same"])
+    _check(f"EP MoE grad of {leaf} vs JAX, in its largest |grad|",
+           float(np.abs(p[key] - ref).max() / np.abs(ref).max()), EP_GRAD_TOL)
+
+
+@pytest.mark.parametrize("ref", ["port", "jax"])
+def test_expert_parallel_train_step(runs, ref):
+    """Reduced granite-moe's step on (pod 2, data 2, model 2) through the
+    EP branch, which ran with UserWarning an error: every rank's synced
+    grads the same; each leaf within rel EP_STEP_TOL[ref] by norm of the
+    one-rank step in 4 microbatches (the mesh's shards), the port's at
+    an aux weight of 1 (the aux loss is each shard's own; a rank's share
+    of its cotangent shows there), JAX's one-device step at granite's
+    0.01; the loss within rel 1e-3."""
+    j, p = runs
+    if ref == "port":
+        mine, other = _grads(p, "ep_mesh_aux1"), _grads(p, "ep_mb4_aux1")
+        la, lo = float(p["ep_mesh_aux1_loss"][0]), float(p["ep_mb4_aux1_loss"][0])
+        assert all(bool(p[f"ep_mesh_aux1_g{i}_same"]) for i in range(len(mine)))
+    else:
+        mine, other = _grads(p, "ep_mesh"), _grads(j, "ep_jax")
+        la, lo = float(p["ep_mesh_loss"][0]), float(j["ep_jax_loss"])
+    assert all(bool(p[f"ep_mesh_g{i}_same"]) for i in range(len(mine)))
+    _check(f"EP train step grads vs {ref} 4 microbatches, worst leaf rel by norm",
+           _worst_norm(mine, other), EP_STEP_TOL[ref])
+    _check(f"EP train step loss vs {ref} 4 microbatches, rel", abs(la - lo) / abs(lo), 1e-3)
 
 
 def _params_diff(a, b, n):

@@ -140,7 +140,8 @@ out = {}
 for arch, shape in CELLS:
     r = JD.lower_cell(arch, shape, verbose=False, save=False)
     out[arch + "/" + shape] = dict(
-        {k: r[k] for k in ("model_flops", "params_b", "active_params_b", "chips")},
+        {k: r[k] for k in ("model_flops", "params_b", "active_params_b", "chips",
+                           "collective_op_counts")},
         argument_bytes=r["memory"]["argument_bytes"])
 print("RESULT " + json.dumps(out))
 '''

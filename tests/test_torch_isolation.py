@@ -308,6 +308,30 @@ def test_kernels_match_plain_versions_on_card():
                 _, e = torch.frexp(torch.maximum(out.float().abs(), r32.abs()))
                 excess = (out.float() - r32).abs() - torch.ldexp(torch.ones_like(r32), e - 9)
                 assert excess.max().item() <= 2.0 ** -16 * vs.float().abs().max().item()
+    # one kernel on the card a call, the merge folded into the split pass,
+    # at G = 2 (the CUDA cores, a counter per row) and 16 (the tensor
+    # cores, a cluster per row), with rows of several splits; every
+    # counter back at 0 after it
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    for hq in (4, 32):
+        qs = torch.randn((4, 1, hq, 128), generator=gen, device=dev).to(torch.bfloat16)
+        ks, vs = (torch.randn((4, 1024, 2, 128), generator=gen, device=dev) for _ in range(2))
+        ls = torch.tensor([1, 1024, 300, 77], dtype=torch.int32, device=dev)
+        decode_attention_kernel(qs, ks, vs, ls)
+        torch.cuda.synchronize()
+        for _ in range(3):                   # a pass may record no device event
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    decode_attention_kernel(qs, ks, vs, ls)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if names:
+                break
+        kernels = [n for n in names if "decode" in n]
+        assert len(kernels) == 3 and all("decode_split" in n for n in kernels), names
+        assert all(int(c.abs().sum()) == 0 for c in dec_ops._counter_cache.values())
     # the SSD scan: an f32 SSD_CASES case, and a ragged length in bf16
     # against the recurrence (5e-3, tests/test_kernels.py)
     for (b, s, h, p, n, chunk), dtype in (((2, 256, 8, 16, 32, 64), torch.float32),

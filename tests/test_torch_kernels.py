@@ -140,6 +140,11 @@ SPLIT_EDGE_CASES = [
     (4, 128, 4, 2, 32, None, None, (16, 17, 64, 65)),
     (3, 128, 8, 2, 32, 40, None, (100, 70, 128)),
     (3, 128, 4, 1, 16, 24, 30.0, (1, 0, 128)),
+    # G = 16, the tensor-core pass (16-key chunks, stages of 64 keys): the
+    # same edges, and a window that starts inside a split and a stage
+    (4, 128, 32, 2, 32, None, None, (16, 17, 64, 65)),
+    (3, 128, 16, 1, 64, 40, None, (100, 70, 128)),
+    (3, 128, 32, 2, 16, 24, 30.0, (1, 0, 128)),
 ]
 
 
@@ -242,6 +247,50 @@ def test_decode_split_emulation_path_shape():
 G16_CASES = [(4, 1024, 32, 2, 128, None, None, (1, 1024, 300, 77)),
              (3, 256, 16, 1, 64, 40, 30.0, (256, 65, 1)),
              (2, 128, 32, 2, 32, None, 50.0, (1, 100))]
+
+
+# chip_smoke.py's DEC_SPLIT_CASES at G = 16 (B, S, Hq, Hkv, hd, window,
+# softcap, per-row lengths, cache dtype or None for q's)
+G16_SPLIT_CASES = [(4, 1024, 32, 2, 128, None, None, (1, 1024, 300, 77), None),
+                   (4, 1024, 32, 2, 128, 200, 30.0, (64, 65, 1024, 1), None),
+                   (4, 1024, 32, 2, 256, 300, None, (1024, 1, 333, 64), None),
+                   (4, 1024, 32, 2, 128, None, None, (9, 1024, 130, 1), "float32")]
+
+
+@pytest.mark.parametrize("rows", [None, "wrapper"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", G16_CASES + G16_SPLIT_CASES)
+def test_decode_tensor_core_emulation_vs_pallas(case, bf16, rows):
+    """The tensor-core split pass's arithmetic (``_tc_split_state``: bf16
+    terms, 16-key chunks, stages, the lanes' sums) and the single-pass
+    merge, at the wrapper's split_rows and in one split, each row against
+    the Pallas kernel (interpret mode) at its own scalar length, and the
+    batch against JAX's decode_attention: 2e-5 in f32, 2e-2 where bf16
+    rounds the output (q and cache in f32, or q in bf16 and the cache in
+    the case's dtype; the port's output has the cache's dtype, the Pallas
+    kernel's q's, JAX's decode_attention the cache's)."""
+    b, s, hq, hkv, d, win, cap, lens, *cache = case
+    cache = cache[0] if cache else None
+    rng = np.random.default_rng(8)
+    c16 = bf16 and cache != "float32"
+    qj, qt = _pair(_normal(rng, (b, 1, hq, d)), bf16)
+    kj, kt = _pair(_normal(rng, (b, s, hkv, d)), c16)
+    vj, vt = _pair(_normal(rng, (b, s, hkv, d)), c16)
+    r = split_rows(b, s, hkv, d) if rows else s
+    out = decode_attention_split_emulation(qt, kt, vt, torch.tensor(lens), r, window=win,
+                                           softcap=cap)
+    assert out.dtype == vt.dtype and out.shape == qt.shape
+    tol = 2e-2 if c16 else 2e-5
+    tol_pallas = 2e-2 if bf16 else 2e-5
+    what = f"rows={r} {case[:7]} q {'bf16' if bf16 else 'f32'} cache {vt.dtype}"
+    for i, n in enumerate(lens):
+        ref = jax_decode_kernel(qj[i:i + 1], kj[i:i + 1], vj[i:i + 1], jnp.asarray(n),
+                                window=win, softcap=cap, kv_block=128)
+        _check(f"decode tensor-core emulation {what} vs Pallas row {i} cache_len={n}",
+               _err(ref, out[i:i + 1]), tol_pallas)
+    ref = jax_decode_attention(qj, kj, vj, jnp.asarray(np.asarray(lens, np.int32)),
+                               window=win, softcap=cap)
+    _check(f"decode tensor-core emulation {what} vs decode_attention", _err(ref, out), tol)
 
 
 @pytest.mark.parametrize("case", G16_CASES)
