@@ -186,8 +186,21 @@ nothing of JAX. Phases, each fatal on failure:
              on (data 2, model 2) through the EP branch's backward, with
              UserWarning an error, aux weight 1, against one rank's step
              in 2 microbatches (the mesh's data shards): each leaf rel
-             4e-2 by norm, loss rel 1e-3. "[dist]" lines give each figure
-             with the card, and the host-staged and ring bytes;
+             4e-2 by norm, loss rel 1e-3; (g) full-width internlm2-1.8b
+             (all 24 layers) trained one step from sharded state on
+             (data 2, model 2), int8 moments, batch 4 x 512, seed-0
+             params: each rank builds through ``launch/train.py::build``
+             and holds only its blocks (FSDP over data, tensor-parallel
+             over model, the int8 moments flat over both), exactly the
+             dry-run's ``argument_bytes`` for the mesh less the batch and
+             the two step scalars; against rank 0's one-rank step on the
+             whole batch (run first, its grads kept in host memory): loss
+             rel 1e-3, every rank's grad blocks rel 4e-2 by norm of the
+             same blocks of the one-rank grads (DIST_SHARD_TOL); each
+             rank's held bytes, card memory peak, the step's ms, the
+             host-staged bytes and K4a/K4b launches printed. "[dist]"
+             lines give each figure with the card, and the host-staged
+             and ring bytes;
 10. dryrun  - the port's dry-run (``repro_torch.launch.dryrun``: a fake
              process group of 256 or 512 ranks, fake tensors, nothing on
              the card), started in subprocesses as the script starts and
@@ -371,7 +384,10 @@ DIST = dict(ranks=4, timeout=600.0,
             # (d) pod sync: internlm2 cut to 2 layers, batch 8 x 512
             sync_layers=2, sync_batch=(8, 512),
             # (f) the EP train step: reduced granite-moe, batch 4 x 64
-            ep_batch=(4, 64))
+            ep_batch=(4, 64),
+            # (g) the sharded train state: full-width internlm2 (every
+            # layer) on (data 2, model 2), batch 4 x 512, int8 moments
+            shard_mesh=(2, 2), shard_batch=(4, 512))
 DIST_COLL_TOL = dict(hier=10 ** -5, comp=0.02)  # scripts/dist_checks.py:24-42
 DIST_ATTN_TOL = 1e-4                            # dist_checks.py:91, f32
 DIST_MOE_TOL = 5e-2                             # dist_checks.py:66
@@ -390,6 +406,13 @@ DIST_SYNC_TOL = dict(loss=1e-3, params=5e-3, int8=2.0, norm=1e-2, exact=4e-2)
 # grad by a few percent; a backward that misses a rank's experts or takes
 # a wrong share of the aux loss reads tenths), and its loss rel
 DIST_EP_TOL = dict(grads=DIST_SYNC_TOL["exact"], loss=1e-3)
+# (g): the step from sharded state against the one-rank step on the whole
+# batch: the loss rel as (d)'s, each rank's grad blocks rel by norm as (d)
+# holds the exact mean (bf16 products round at other places in a shard
+# and in a tensor-parallel block), and each rank's held bytes equal,
+# exactly, to the dry-run's argument_bytes for the mesh less the batch and
+# the two step scalars
+DIST_SHARD_TOL = dict(loss=DIST_SYNC_TOL["loss"], grads=DIST_SYNC_TOL["exact"], held_bytes=0)
 # the dryrun phase: cells traced in subprocesses while the card works;
 # the train phase's cell (TRAIN) checked against the card, whole and cut
 # to check_layers layers
@@ -2245,9 +2268,11 @@ def _dist_rank(rank: int, world: int, root: str, card: str) -> dict:
     peaks = {}
 
     def mark(part):
-        """Frees the cache and keeps the most card memory (GiB) this rank
-        held since the last mark."""
+        """Frees the caches (the card's, and the pinned host memory a part's
+        staged copies leave cached where torch can free it) and keeps the
+        most card memory (GiB) this rank held since the last mark."""
         torch.cuda.empty_cache()
+        getattr(torch._C, "_host_emptyCache", lambda: None)()
         peaks[part] = round(torch.cuda.max_memory_allocated(dev) / 2 ** 30, 2)
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -2509,6 +2534,7 @@ def _dist_rank(rank: int, world: int, root: str, card: str) -> dict:
     out["checks"]["reshard bit-equal"] = same
     say(f"(e) elastic reshard of (d)'s params {m4.shape} -> {m2.shape}: bit-equal {same} on "
         f"rank 0, {ms:.0f} ms, host-staged {st} bytes")
+    del params, p2
     mark("e")
 
     # (f) the EP train step: reduced granite-moe on (data 2, model 2) under
@@ -2553,12 +2579,151 @@ def _dist_rank(rank: int, world: int, root: str, card: str) -> dict:
     out["ep_step"] = dict(grads_rel=rel, loss_rel=lrel, ms=times[0][0], one_rank_ms=times[1][0])
     out["checks"]["EP train step"] = rel < DIST_EP_TOL["grads"] and lrel < DIST_EP_TOL["loss"]
     del kept, p0, batch
+    mark("f")
+
+    # (g) the sharded train state: full-width internlm2-1.8b, every layer,
+    #     on (data 2, model 2), int8 moments, one step from seed-0 params.
+    #     Rank 0 first runs the one-rank step on the whole batch and keeps
+    #     its loss and grads in host memory; then every rank builds its
+    #     blocks (launch/train.py::build) and steps them; rank 0 receives
+    #     each rank's grad blocks, one leaf at a time, and holds them to
+    #     the same blocks of its grads
+    out["shard"] = _dist_shard(rank, world, dev, cfg, gen, timed, say, counters)
+    mark("g")
     torch.cuda.synchronize()
     out["launches"] = {name: fn.launches for name, fn in counters.items()}
     out["staged_bytes"] = C.host_staged.bytes
-    mark("f")
     out["peak_gib"] = peaks
     return out
+
+
+def tree_nbytes(tree) -> int:
+    """The bytes of every tensor of a tree of dicts, tuples and lists."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    return sum(tree_nbytes(v) for v in tree) if isinstance(tree, (tuple, list)) else 0
+
+
+def _dist_shard(rank, world, dev, cfg, gen, timed, say, counters) -> dict:
+    """Part (g) of the dist phase on one rank (``_dist_rank``): its
+    figures, and on rank 0 the reference's and the grad blocks' checks."""
+    import torch
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.inputs import train_layout
+    from repro_torch.launch.train import build
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel.sharding import Mesh
+    from repro_torch.train import train_step as TS
+
+    lead = rank == 0
+    b, s = DIST["shard_batch"]
+    run = RunConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10, moments_int8=True)
+    tk = torch.randint(0, cfg.vocab_size, (b, s), generator=gen(7), device=dev)
+    batch = {"tokens": tk, "labels": tk, "loss_mask": torch.ones((b, s), device=dev)}
+    adamw, aside = TS.adamw_update, [0.0]
+    ref, res, worst = None, {}, [0.0]
+
+    def adamw_keeping(grads, *a, **k):
+        """The one-rank step's grads to rank 0's host memory; the sharded
+        step's grad blocks sent to rank 0 leaf by leaf and held to the
+        same blocks of them there; off the step's time."""
+        nonlocal ref
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        leaves = tree_leaves(grads)
+        if ref is None:
+            ref = [g.to("cpu", copy=True) for g in leaves]
+        else:
+            for i, (g, bs) in enumerate(zip(leaves, tree_leaves(play))):
+                for r in range(world):
+                    if lead:
+                        blk = g if r == 0 else torch.empty(g.shape, dtype=g.dtype)
+                        if r:
+                            dist.recv(blk, src=r)
+                        coord = dict(zip(mesh.axis_names, divmod(r, mesh.shape["model"])))
+                        o = ref[i]
+                        for dim, entry in enumerate(bs.spec if bs.is_block(g) else ()):
+                            if entry is not None:
+                                o = o.narrow(dim, coord[entry] * g.shape[dim], g.shape[dim])
+                        o, blk = o.to(dev), blk.to(dev)
+                        worst[0] = max(worst[0], float((blk - o).norm() / o.norm()))
+                        ref[i] = None if r == world - 1 else ref[i]
+                        del o, blk
+                    elif r == rank:
+                        dist.send(g.to("cpu").contiguous(), dst=0)
+        aside[0] += time.perf_counter() - t0
+        return adamw(grads, *a, **k)
+
+    def host_gib():                              # this process's host memory high-water mark
+        import resource
+        return round(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20, 2)
+
+    TS.adamw_update = adamw_keeping
+    try:
+        if lead:                                 # the one-rank step, the whole batch
+            own, opt, step = build(cfg, run, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            met = step(own, opt, batch, 1)[2]
+            torch.cuda.synchronize()
+            res["ref_ms"] = (time.perf_counter() - t0 - aside[0]) * 1e3
+            res["ref_loss"] = float(met["loss"])
+            del own, opt, step, met
+        else:
+            ref = ()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh = Mesh(DIST["shard_mesh"], ("data", "model"), device=dev)
+        k0 = {n: counters[n].launches for n in ("quantize", "dequantize")}
+        for r in range(world):                   # one whole f32 init at a time on the card
+            if r == rank:
+                params, opt, step = build(cfg, run, dev, mesh)
+                torch.cuda.empty_cache()
+            dist.barrier()
+        res["build_launches"] = {n: counters[n].launches - k0[n] for n in k0}
+        res["held"] = tree_nbytes(params) + tree_nbytes((opt.m, opt.v))
+        play, olay = train_layout(cfg, mesh, "int8")
+        res["whole"] = sum(4 * math.prod(x.shape) for x in tree_leaves(play)) + 2 * sum(
+            math.prod(q.q.shape) + 4 * math.prod(q.scale.shape) for q in tree_leaves(olay.m))
+        with FakeTensorMode():                   # the dry-run's arguments on this mesh
+            args, sizes, _ = D._stand_ins(cfg, ShapeConfig("g", s, b, "train"), mesh, run)
+            res["want_held"] = (sizes["argument_bytes"] - D._local_bytes(D._flat(args["batch"]))
+                                - 2 * D.SCALAR_BYTES)
+        k0 = {n: counters[n].launches for n in ("quantize", "dequantize")}
+        aside[0] = 0.0
+        (params, opt, met), ms, st, _ = timed(lambda: step(params, opt, batch, 1))
+        res["ms"] = ms - aside[0] * 1e3
+        res["staged"], res["loss"] = st, float(met["loss"])
+        res["grad_norm"] = float(met["grad_norm"])
+        res["launches"] = {n: counters[n].launches - k0[n] for n in k0}
+        res["peak_gib"] = round(torch.cuda.max_memory_allocated(dev) / 2 ** 30, 2)
+        res["host_gib"] = host_gib()
+    finally:
+        TS.adamw_update = adamw
+    del params, opt, step, batch
+    torch.cuda.empty_cache()
+    if lead:
+        res["grads_rel"] = worst[0]
+        res["loss_rel"] = abs(res["loss"] - res["ref_loss"]) / abs(res["ref_loss"])
+        say(f"(g) sharded train state, full-width {cfg.name} ({cfg.num_layers} layers) on "
+            f"{mesh.shape}, int8 moments, batch {b} x {s}: rank 0 holds {res['held']} bytes of "
+            f"the whole state's {res['whole']} (dry-run argument_bytes less the batch and the "
+            f"step scalars: {res['want_held']}), card peak {res['peak_gib']} GiB; the step "
+            f"{res['ms']:.0f} ms (one rank on the whole batch {res['ref_ms']:.0f} ms), host-staged "
+            f"{res['staged']} bytes, K4a {res['launches']['quantize']} / K4b "
+            f"{res['launches']['dequantize']} launches (build: K4a "
+            f"{res['build_launches']['quantize']}); grad blocks vs one rank, worst leaf rel by "
+            f"norm {worst[0]:.3g} (tol {DIST_SHARD_TOL['grads']}), loss {res['loss']:.6f} vs "
+            f"{res['ref_loss']:.6f} rel {res['loss_rel']:.3g} (tol {DIST_SHARD_TOL['loss']})")
+    return res
 
 
 def phase_dist(torch, dev, card: str):
@@ -2570,12 +2735,22 @@ def phase_dist(torch, dev, card: str):
     internlm2-1.8b; (c) the expert-parallel MoE of granite-moe at full
     width; (d) the compressed pod sync against the exact one; (e) the
     elastic reshard; (f) reduced granite-moe's EP train step against one
-    rank's. Fails if any rank fails, hangs or a check does not
-    hold. Returns each kernel's launches per rank."""
+    rank's; (g) full-width internlm2-1.8b's step from the train state held
+    in blocks (FSDP over data, tensor-parallel over model) against one
+    rank's, each rank's held bytes against the dry-run's. Fails if any
+    rank fails, hangs or a check does not hold. Returns each kernel's
+    launches per rank."""
     from repro_torch.parallel import ranks
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_reserved(dev) / 2 ** 30
+    import resource
+    with open("/proc/meminfo") as f:
+        avail = next((int(ln.split()[1]) / 2 ** 20 for ln in f
+                      if ln.startswith("MemAvailable")), float("nan"))
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    print(f"[dist] before the ranks: host memory {avail:.2f} GiB available, this process's "
+          f"high-water {rss:.2f} GiB, {held:.2f} GiB of card memory reserved", flush=True)
     t0 = time.perf_counter()
     got = ranks.spawn(_dist_rank, DIST["ranks"], str(ROOT), card, timeout=DIST["timeout"])
     wall = time.perf_counter() - t0
@@ -2583,8 +2758,27 @@ def phase_dist(torch, dev, card: str):
     if any(g["cp_tokens"] != got[0]["cp_tokens"] for g in got):
         bad.add("the ranks' CP tokens differ")
     launches = {k: [g["launches"][k] for g in got] for k in got[0]["launches"]}
-    peaks = ", ".join(f"({k}) {[g['peak_gib'][k] for g in got]}" for k in "abcdef")
-    most = max(sum(g["peak_gib"][k] for g in got) for k in "abcdef")
+    peaks = ", ".join(f"({k}) {[g['peak_gib'][k] for g in got]}" for k in "abcdefg")
+    most = max(sum(g["peak_gib"][k] for g in got) for k in "abcdefg")
+    shard = [g["shard"] for g in got]
+    ref = shard[0]
+    print(f"[dist] (g) per rank: held bytes {[x['held'] for x in shard]} of {ref['whole']}, "
+          f"card peak {[x['peak_gib'] for x in shard]} GiB, step ms "
+          f"{[round(x['ms'], 1) for x in shard]}, host-staged bytes "
+          f"{[x['staged'] for x in shard]}, K4a/K4b launches "
+          f"{[(x['launches']['quantize'], x['launches']['dequantize']) for x in shard]}, "
+          f"loss {[x['loss'] for x in shard]}, grad norm {[x['grad_norm'] for x in shard]}, "
+          f"host memory high-water {[x['host_gib'] for x in shard]} GiB "
+          f"({card}; gloo through host memory, not NVLink)")
+    for r, x in enumerate(shard):
+        if x["held"] - x["want_held"] != DIST_SHARD_TOL["held_bytes"]:
+            bad.add(f"rank {r}: (g) holds {x['held']} bytes, the dry-run says {x['want_held']}")
+        if abs(x["loss"] - ref["ref_loss"]) / abs(ref["ref_loss"]) >= DIST_SHARD_TOL["loss"]:
+            bad.add(f"rank {r}: (g) loss {x['loss']} vs one rank's {ref['ref_loss']}")
+        if not x["launches"]["quantize"] or not x["launches"]["dequantize"]:
+            bad.add(f"rank {r}: (g) K4a/K4b did not launch in the sharded step")
+    if ref["grads_rel"] >= DIST_SHARD_TOL["grads"]:
+        bad.add(f"(g) grad blocks vs one rank, rel {ref['grads_rel']}")
     print(f"[dist] {DIST['ranks']} ranks in {wall:.1f} s; launches per rank {launches}; "
           f"host-staged bytes per rank {[g['staged_bytes'] for g in got]}; peak memory (GiB) "
           f"per part and rank: {peaks}, at most {most:.2f} summed over the ranks of one part; "

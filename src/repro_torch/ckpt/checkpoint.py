@@ -364,6 +364,14 @@ class CheckpointManager:
     (the paper's "DMA to staging memory"; a copy, because the train step
     updates params and moments in place), then a background thread
     compresses, writes and replicates — training continues.
+
+    On a mesh (``mesh`` and ``layout``, the ``BlockSpec`` tree of the
+    saved tree: ``launch/inputs.train_layout``'s pair for (params, AdamW
+    state)), every rank calls ``maybe_save`` with its blocks, which are
+    gathered whole on every rank (``parallel/sharding.gather``); only a
+    manager with ``write`` stages and writes them, in the one-device
+    format. ``restore`` reads the whole tree on every rank and cuts its
+    blocks (``place``), also onto another mesh than the one that saved.
     """
 
     @staticmethod
@@ -409,9 +417,12 @@ class CheckpointManager:
 
     def __init__(self, directory: str, *, every: int = 100, keep: int = 2,
                  compress: bool = True, replicas: int = 0,
-                 replica_dirs: Optional[List[str]] = None):
+                 replica_dirs: Optional[List[str]] = None, write: bool = True,
+                 mesh=None, layout: Optional[PyTree] = None):
         self.dir = directory
         self.every = every
+        self.write = write
+        self.mesh, self.layout = mesh, layout
         self.keep = keep
         self.compress = compress
         self.replica_dirs = list(replica_dirs or [])
@@ -434,6 +445,11 @@ class CheckpointManager:
         return True
 
     def save(self, step: int, tree: PyTree, *, blocking: bool = False):
+        if self.layout is not None:
+            from repro_torch.parallel.sharding import gather
+            tree = gather(tree, self.layout, self.mesh)           # every rank
+        if not self.write:
+            return
         host_tree = stage(tree)                                   # stage
         self.wait()                                               # one writer
 
@@ -501,10 +517,18 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
+        placed = self.layout is not None
+        if placed:                          # the whole tree, cut after loading
+            from repro_torch.parallel.sharding import place, tree_map
+            like = tree_map(lambda b, x: x if b is None or not isinstance(x, torch.Tensor)
+                            else torch.empty(b.shape, dtype=x.dtype, device=x.device),
+                            self.layout, like,
+                            is_leaf=lambda x: x is None or not isinstance(x, (dict, tuple)))
         errors = []
         for root in [self.dir] + self.replica_dirs:
             try:
-                return load_checkpoint(self._step_dir(step, root), like)
+                tree, k = load_checkpoint(self._step_dir(step, root), like)
+                return (place(tree, self.layout, self.mesh) if placed else tree), k
             except (OSError, ValueError) as e:      # FileNotFoundError, IOError
                 errors.append(str(e))
         raise IOError(f"step {step} unrecoverable from any replica: {errors}")

@@ -62,6 +62,26 @@ def _pinned(x: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def to_host(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in host memory (a CUDA tensor copied there, counted in
+    ``host_staged.bytes``; a CPU tensor as it is): for an exchange whose
+    result stays on the host. Pageable, not pinned: a one-off copy of a
+    whole block would stay in the pinned cache."""
+    if x.device.type == "cpu":
+        return x
+    host_staged.bytes += x.numel() * x.element_size()
+    return x.to("cpu")
+
+
+def host_back(x: torch.Tensor, device) -> torch.Tensor:
+    """``to_host``'s inverse: a host tensor copied to ``device`` (counted
+    in ``host_staged.bytes``), or ``x`` as it is on the CPU."""
+    if torch.device(device).type == "cpu":
+        return x
+    host_staged.bytes += x.numel() * x.element_size()
+    return x.to(device)
+
+
 def host_staged(op: Callable, *xs: torch.Tensor):
     """``op(*xs)`` where ``op`` runs gloo collectives: on CPU tensors as
     they are; for CUDA tensors on pinned host copies, with the result (a

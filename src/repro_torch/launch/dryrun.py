@@ -18,14 +18,17 @@ no compiler to ask; it traces rank 0's step instead:
   ``parallel/sharding.py``), are ``FakeTensor``s: shapes and dtypes, no
   storage. The step functions are the port's own (``make_train_step``,
   ``models/model.py::prefill`` and ``decode_step``, with ``cp_axis`` as
-  JAX's dry-run picks it), and they take whole weights: each weight and
-  moment is gathered from its shard by ``core/collectives.all_gather``
-  over the axes that shard it, which is what a replicated-weight step
-  must do from JAX's sharded layout. (The port's SPMD launcher holds
-  every weight whole on every rank instead:
-  ``memory["replicated_argument_bytes"]``.) The train step gets the
-  global batch the same way and cuts its share; prefill and decode take
-  rank 0's rows, decode its cache rows on ``cp_axis``.
+  JAX's dry-run picks it). The train step takes the param and optimizer
+  shards themselves, the blocks the SPMD launcher holds
+  (``launch/train.py::place_state``): it gathers each weight over
+  ``data`` where it uses it and computes tensor-parallel over ``model``,
+  and its optimizer steps the blocks, so rank 0's counts are those of
+  the launcher's step. It gets the global batch, as the launcher's ranks
+  do, and cuts its share. The serve steps run on one device in the
+  launchers and take whole weights here: each weight is gathered from
+  its shard by ``core/collectives.all_gather`` over the axes that shard
+  it; prefill and decode take rank 0's rows, decode its cache rows on
+  ``cp_axis``.
 - **Kernels.** Fake tensors are CPU tensors, so every kernel wrapper
   takes its plain version (``kernels.use_kernel``), and JAX's dry-run
   never reaches Pallas either: attention ``ref`` below 2048 tokens and
@@ -313,7 +316,7 @@ class _Leaf:
             for a in _axes(entry):
                 local[dim] //= mesh.shape[a]
         self.tensor = torch.empty(local, dtype=dtype)
-        self.whole_bytes = torch.Size(shape).numel() * self.tensor.element_size()
+        self.shape = tuple(shape)
 
     def whole(self, mesh: Mesh, keep: Sequence[int] = ()) -> torch.Tensor:
         """The tensor gathered over every axis that shards it, but for
@@ -408,7 +411,7 @@ def _stand_ins(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, run: RunConfig,
                opt_list: Sequence[str] = ()):
     """Rank 0's arguments of the cell's step as ``_Leaf`` trees (call it in
     a ``FakeTensorMode``), and their sizes: ``argument_bytes``,
-    ``replicated_argument_bytes``, ``alias_bytes`` and ``returned_bytes``
+    ``alias_bytes`` and ``returned_bytes``
     (what the step returns in rank 0's layout, but for the tensors the
     trace makes: metrics and logits)."""
     params_meta, logical, _ = param_shardings(cfg, mesh)
@@ -444,7 +447,6 @@ def _stand_ins(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, run: RunConfig,
         extra = 0
     held = _flat(args)
     sizes = {"argument_bytes": _local_bytes(held) + scalars,
-             "replicated_argument_bytes": sum(x.whole_bytes for x in held) + scalars,
              "alias_bytes": _local_bytes(donated),
              "returned_bytes": _local_bytes(returned) + extra}
     return args, sizes, cp_axis
@@ -473,25 +475,32 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, run: RunConfig,
     with FakeTensorMode(), stack:
         args, sizes, cp_axis = _stand_ins(cfg, shape, mesh, run, opt_list)
         trace = Trace([(n, int(s)) for n, s in mesh.shape.items()])
-        trace.hold(x.tensor for x in _flat(args))
+        train = shape.kind == "train"
+        if train:                   # the global batch, as every rank is given it
+            batch = {k: torch.zeros(x.shape, dtype=x.tensor.dtype)
+                     for k, x in args["batch"].items()}
+            trace.hold(batch.values())
+        trace.hold(x.tensor for x in _flat(args) if not (train and x in _flat(args["batch"])))
         flop_counter = FlopCounterMode(display=False)
         with use_mesh(mesh), flop_counter, trace:
-            whole = _map(lambda x: x.whole(mesh), args["params"])
-            if shape.kind == "train":
-                opt = AdamWState(step=0, m=_map(lambda x: x.whole(mesh), args["opt_state"].m),
-                                 v=_map(lambda x: x.whole(mesh), args["opt_state"].v))
-                batch = {k: x.whole(mesh) for k, x in args["batch"].items()}
+            if train:
+                local = lambda x: x.tensor  # noqa: E731
                 step_fn = make_train_step(
                     cfg, run, impl="auto", mesh=mesh,
                     capacity_factor=1.0 if "cf1" in opt_list else 1.25,
                     loss_chunk=2048 if "losschunk2048" in opt_list else 512)
-                made = step_fn(whole, opt, batch, 0)[2]
+                made = step_fn(_map(local, args["params"]),
+                               AdamWState(step=0, m=_map(local, args["opt_state"].m),
+                                          v=_map(local, args["opt_state"].v)), batch, 0)[2]
+                del batch
             elif shape.kind == "prefill":
+                whole = _map(lambda x: x.whole(mesh), args["params"])
                 b = {k: x.tensor for k, x in args["batch"].items()}
                 made = M.prefill(cfg, whole, b["tokens"], shape.seq_len,
                                  frontend_embeds=b.get("frontend_embeds"),
                                  impl=train_impl(shape.seq_len))[0]
             else:
+                whole = _map(lambda x: x.whole(mesh), args["params"])
                 # rank 0's batch rows of the cache, and its sequence rows
                 # on cp_axis; the port's step takes every head
                 cache = tuple({name: x.whole(mesh, keep=(1, 2) if cp_axis and name in "kv"
@@ -575,8 +584,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                mesh_shape: Optional[Sequence[Tuple[str, int]]] = None,
                extrapolate: bool = True) -> dict:
     """JAX's ``lower_cell``: the cell's result dict (JAX's keys, and
-    ``memory["peak_bytes"]``, ``memory["replicated_argument_bytes"]``,
-    ``collective_axes``, ``ops``, ``groups_traced``), printed and saved as
+    ``memory["peak_bytes"]``, ``collective_axes``, ``ops``, ``groups_traced``), printed and saved as
     JAX's; ``compile_s`` is the trace's seconds. ``cfg``, ``shape`` and
     ``mesh_shape`` ((name, size) pairs) stand in for ``get_config(arch)``,
     ``SHAPES[shape_name]`` and the production mesh; ``extrapolate=False``
@@ -634,8 +642,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "useful_flops_ratio": report.useful_flops_ratio,
         "roofline_frac": report.roofline_frac,
         "step_time_s": report.step_time_s,
-        "memory": dict(memory, peak_bytes=report.memory_bytes_per_chip,
-                       replicated_argument_bytes=counts["replicated_argument_bytes"]),
+        "memory": dict(memory, peak_bytes=report.memory_bytes_per_chip),
         "collective_axes": sorted({"+".join(op.axes) for op in traffic.ops}),
         "ops": counts["ops"], "groups_traced": counts["groups_traced"],
         "lower_s": t_lower, "compile_s": t_trace,

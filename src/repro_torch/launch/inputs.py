@@ -13,8 +13,10 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import model as M
 from repro_torch.models.model import init_cache_logical
 from repro_torch.models.params import abstract_params
+from repro_torch.optim.adamw import AdamWState, abstract_state, opt_logical
 from repro_torch.parallel.sharding import (CONTEXT_PARALLEL_OVERRIDES, is_logical,
-                                           named_sharding, tree_map, tree_shardings)
+                                           named_sharding, tree_layout, tree_map,
+                                           tree_shardings)
 
 
 def Spec(shape, dtype) -> torch.Tensor:
@@ -87,3 +89,15 @@ def decode_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh,
 def param_shardings(cfg: ModelConfig, mesh):
     shapes, logical = abstract_params(cfg)
     return shapes, logical, tree_shardings(logical, shapes, mesh)
+
+
+def train_layout(cfg: ModelConfig, mesh, moments: str = "f32") -> Tuple[Any, AdamWState]:
+    """(the params' ``BlockSpec`` tree, the AdamW state's) on ``mesh``:
+    JAX's ``param_shardings`` and ``_opt_logical``, the layout a rank of
+    the train step holds (``parallel/sharding.place``)."""
+    shapes, logical = abstract_params(cfg)
+    params = tree_layout(logical, shapes, mesh)
+    if moments != "int8":
+        return params, AdamWState(step=None, m=params, v=params)
+    return params, tree_layout(opt_logical(logical, True),
+                               abstract_state(shapes, moments=moments), mesh)

@@ -23,12 +23,18 @@ Three modes:
   directory), or the group ``torchrun`` describes in the environment
   (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``). The mesh
   is ``best_mesh_for(world, model=min(2, world), prefer_pods=2)``, as
-  the JAX launcher's local mode builds it from the device count; every
-  rank holds the whole params and takes its share of each batch, and
-  ``--pod-sync compressed`` sends the grads across pods through the int8
-  ring. On one card every rank computes on it and the ranks talk over
-  gloo through host memory. Rank 0 prints, logs and checkpoints; every
-  rank resumes from ``--ckpt-dir``.
+  the JAX launcher's local mode builds it from the device count. Every
+  rank draws the same params from the seed, keeps only its blocks of
+  them and of the AdamW state (JAX's ``param_shardings`` and
+  ``_opt_logical``: d_model split over data, heads, mlp and vocab over
+  model, int8 moments flat over both) and frees the rest; it takes its
+  share of each batch and computes FSDP over data and tensor-parallel
+  over model, and ``--pod-sync compressed`` sends the grads across pods
+  through the int8 ring. On one card every rank computes on it and the
+  ranks talk over gloo through host memory. Rank 0 prints and logs (the
+  loss and grad norm are every rank's); a checkpoint gathers the blocks
+  whole on every rank and rank 0 writes them in the one-device format;
+  every rank resumes from ``--ckpt-dir`` and cuts its blocks again.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
         --reduced --device cpu --multi-pod --ranks 4 --pod-sync compressed --steps 3
@@ -62,9 +68,11 @@ from repro_torch.ft.elastic import best_mesh_for, make_mesh
 from repro_torch.configs import SHAPES, RunConfig, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.kernels.quant.ops import dequantize, quantize
+from repro_torch.launch.inputs import train_layout
 from repro_torch.models.params import init_params
-from repro_torch.optim.adamw import adamw_init
+from repro_torch.optim.adamw import AdamWState, adamw_init, tree_leaves, tree_unflatten
 from repro_torch.parallel import ranks as ranks_mod
+from repro_torch.parallel.sharding import place
 from repro_torch.train.train_step import make_train_step
 from repro_torch.train.trainer import Trainer
 
@@ -72,13 +80,38 @@ from repro_torch.train.trainer import Trainer
 REDUCED_SHAPE = (8, 64)
 
 
+def _moments(run: RunConfig) -> str:
+    return "int8" if run.moments_int8 else "f32"
+
+
+def place_state(cfg, run: RunConfig, params, mesh):
+    """This rank's blocks of ``params`` (whole, the same on every rank)
+    and of ``adamw_init``'s state for them under ``launch/inputs.
+    train_layout`` (JAX's ``jax.device_put`` with ``param_shardings`` and
+    ``_opt_logical``). The state is made and cut one leaf at a time, so
+    no more than one whole moment is held."""
+    moments = _moments(run)
+    play, olay = train_layout(cfg, mesh, moments)
+    ms, vs = [], []
+    for p, bm, bv in zip(tree_leaves(params), tree_leaves(olay.m), tree_leaves(olay.v)):
+        st = adamw_init(p, moments=moments)
+        ms.append(place(st.m, bm, mesh))
+        vs.append(place(st.v, bv, mesh))
+    opt = AdamWState(step=0, m=tree_unflatten(params, ms), v=tree_unflatten(params, vs))
+    return place(params, play, mesh), opt
+
+
 def build(cfg, run: RunConfig, device, mesh=None):
-    """Params from seed ``run.seed``, AdamW state and the train step (on
-    ``mesh``'s ranks where given: each rank draws the same params)."""
+    """Params from seed ``run.seed``, AdamW state and the train step. On
+    ``mesh``'s ranks each rank draws the same params and keeps only its
+    blocks of them and of the state (``place_state``)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(run.seed)
     params = init_params(cfg, gen, device)
-    opt = adamw_init(params, moments="int8" if run.moments_int8 else "f32")
+    if mesh is None:
+        opt = adamw_init(params, moments=_moments(run))
+    else:
+        params, opt = place_state(cfg, run, params, mesh)
     return params, opt, make_train_step(cfg, run, mesh=mesh)
 
 
@@ -98,8 +131,11 @@ def train_loop(cfg, run, shape, args, device, mesh=None, lead: bool = True):
     params, opt, step_fn = build(cfg, run, device, mesh)
     ckpt = None
     if args.ckpt_dir:
-        ckpt = CheckpointManager(args.ckpt_dir, every=args.ckpt_every if lead else 0,
-                                 replicas=args.ckpt_replicas if lead else 0)
+        # on a mesh every rank gathers the blocks of a save; rank 0 writes
+        ckpt = CheckpointManager(
+            args.ckpt_dir, every=args.ckpt_every if lead or mesh is not None else 0,
+            replicas=args.ckpt_replicas if lead else 0, write=lead, mesh=mesh,
+            layout=None if mesh is None else train_layout(cfg, mesh, _moments(run)))
     tr = Trainer(cfg, run, shape, step_fn=step_fn, params=params, opt_state=opt,
                  ckpt=ckpt, log_path=(args.log or None) if lead else None)
     if tr.start_step:

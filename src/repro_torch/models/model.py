@@ -30,6 +30,18 @@ the new SSM states into the cache it is given, in place, and returns
 that same cache: JAX's ``.at[].set`` builds a new array, which on the
 card would copy the whole cache every step.
 
+On a mesh (``use_mesh``) the training forward also takes each weight as
+this rank's block of the train state's layout (``parallel/sharding.
+place``, JAX's ``param_shardings``): d_model gathered over ``data``
+(``layers.fsdp_gather``), and a block of the heads, mlp or vocab dim
+computed tensor-parallel over ``model``: q/k/v column-parallel over the
+rank's heads (KV heads that do not divide the axis are whole, and each
+rank takes those its q heads read), ``wo`` and the MLP's ``w_out``
+row-parallel (``layers.tp_product``), the embedding and the head
+vocab-parallel (the lookup masked to the rank's rows and summed, the
+loss's logsumexp merged over the vocab blocks by an all-reduce of the
+max and of the sum). A whole weight keeps the replicated compute.
+
 An MoE layer's FFN is ``moe.moe_ffn`` (the local dispatch; its
 load-balance loss sums into ``ForwardResult.aux_loss``), with
 ``capacity_factor`` 1.25 in ``forward`` and lossless (``None``) in
@@ -44,6 +56,7 @@ import functools
 from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -54,10 +67,13 @@ from repro_torch.kernels import use_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import activation_fn, mlp, rmsnorm, rope, row_parallel
+from repro_torch.core.collectives import all_gather, all_reduce
+from repro_torch.models.layers import (activation_fn, fsdp_gather, mlp, rmsnorm, rope,
+                                       row_parallel, tp_enter, tp_product)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import (check_supported, layer_period,
                                        num_groups, slot_kind)
+from repro_torch.parallel.sharding import current_mesh
 
 PyTree = Any
 
@@ -94,12 +110,21 @@ def embed_tokens(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     or (B,S,C) for codebooks, summed over the per-codebook tables in f32;
     ``frontend_embeds`` (B,F,D) in front of them."""
     check_supported(cfg)
-    table = params["embed"]["table"]
+    mesh = current_mesh()
+    table = fsdp_gather(params["embed"]["table"], -1, cfg.d_model, mesh)
     tokens = tokens.long()
+    lo, inside = _vocab_lo(cfg, table, mesh), None
+    if lo is not None:                  # this rank's vocab rows: masked, summed
+        tokens = tokens - lo
+        inside = (tokens >= 0) & (tokens < table.shape[-2])
+        tokens = torch.where(inside, tokens, 0)
     if cfg.num_codebooks > 1:
-        x = sum(table[c][tokens[..., c]] for c in range(cfg.num_codebooks))
+        x = sum(_masked(table[c][tokens[..., c]], None if inside is None else inside[..., c])
+                for c in range(cfg.num_codebooks))
     else:
-        x = table[tokens]
+        x = _masked(table[tokens], inside)
+    if lo is not None:
+        x = all_reduce(x, mesh.get_group("model"))
     x = x.to(_dtype(cfg))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
@@ -108,22 +133,60 @@ def embed_tokens(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     return x
 
 
+def _masked(rows: torch.Tensor, inside: Optional[torch.Tensor]) -> torch.Tensor:
+    return rows if inside is None else rows * inside[..., None]
+
+
+def _vocab_lo(cfg: ModelConfig, table: torch.Tensor, mesh) -> Optional[int]:
+    """The first vocab row of a vocab-parallel table block, or None for a
+    whole table."""
+    rows = table.shape[-2]
+    return None if rows == cfg.vocab_size else mesh.index("model") * rows
+
+
 # ----------------------------------------------------------------------
 # single layer
 # ----------------------------------------------------------------------
 
+def _kv_for_heads(cfg: ModelConfig, w: torch.Tensor, hq_local: int, mesh) -> torch.Tensor:
+    """The KV heads of a whole ``wk``/``wv`` (D, Hkv, hd) that this
+    rank's block of ``hq_local`` q heads reads, for a tensor-parallel
+    attention whose KV heads do not divide ``model`` (replicated, as
+    ``logical_to_spec`` leaves them): their contiguous run where the q
+    heads take whole GQA groups or share one, else one KV head per q
+    head. ``pvary``: each rank reads its own heads of the replicated
+    weight, so its grad is summed over ``model``."""
+    group = cfg.num_heads // cfg.num_kv_heads
+    lo = mesh.index("model") * hq_local
+    idx = [(lo + i) // group for i in range(hq_local)]
+    runs = sorted(set(idx))
+    w = tp_enter(w, mesh)
+    if hq_local % len(runs) == 0 and \
+            idx == [r for r in runs for _ in range(hq_local // len(runs))]:
+        return w.narrow(1, runs[0], len(runs))
+    return w.index_select(1, torch.tensor(idx, device=w.device))
+
+
 def _project_qkv(cfg: ModelConfig, p: dict, h: torch.Tensor, positions):
     """bf16 q/k/v (B,S,H,hd), roped. Each is a (B·S, D) x (D, H·hd)
-    product viewed as (B,S,H,hd), so it comes out contiguous."""
+    product viewed as (B,S,H,hd), so it comes out contiguous. A block of
+    ``wq``'s heads (a mesh's ``model`` axis) gives this rank's heads, and
+    k/v the KV heads they read."""
     b, s, d = h.shape
+    mesh = current_mesh()
+    wq, wk, wv = (fsdp_gather(p[n], 0, d, mesh) for n in ("wq", "wk", "wv"))
     xc = h.to(torch.bfloat16).reshape(b * s, d)
+    if wq.shape[1] != cfg.num_heads:            # tensor-parallel over the heads
+        xc = tp_enter(xc, mesh)
+        if wk.shape[1] == cfg.num_kv_heads:
+            wk, wv = (_kv_for_heads(cfg, w, wq.shape[1], mesh) for w in (wk, wv))
 
     def proj(w):
         return (xc @ w.to(torch.bfloat16).reshape(d, -1)).view(b, s, w.shape[1], w.shape[2])
 
-    q = rope(proj(p["wq"]), positions, cfg.rope_theta, cfg.rope_fraction)
-    k = rope(proj(p["wk"]), positions, cfg.rope_theta, cfg.rope_fraction)
-    return q, k, proj(p["wv"])
+    q = rope(proj(wq), positions, cfg.rope_theta, cfg.rope_fraction)
+    k = rope(proj(wk), positions, cfg.rope_theta, cfg.rope_fraction)
+    return q, k, proj(wv)
 
 
 def _out_proj(p: dict, out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -196,24 +259,39 @@ def _attention_mixer(cfg: ModelConfig, kind: dict, p: dict, x: torch.Tensor, *,
         _write_cache(cache, k, v, pos)
         out = attn_mod.decode(q, cache["k"], cache["v"], pos + 1, window=window,
                               softcap=cfg.attn_logit_softcap, impl=impl)
-    y = row_parallel(out.to(torch.bfloat16), p["wo"].to(torch.bfloat16), x_shard_dim=2)
+    wo = fsdp_gather(p["wo"], 2, x.shape[-1], current_mesh())
+    if wo.shape[0] != cfg.num_heads:            # row-parallel over the heads
+        y = tp_product(out, wo, 2, current_mesh())
+    else:
+        y = row_parallel(out.to(torch.bfloat16), wo.to(torch.bfloat16), x_shard_dim=2)
     return y.to(x.dtype)
 
 
 def _ssm_inputs(cfg: ModelConfig, p: dict, h: torch.Tensor):
     """The Mamba2 block's bf16 projections (``model.py:104-111``):
     x_in, z (B,S,Di), b_in, c_in (B,S,N), dt_raw (B,S,H), and A (H,) f32.
-    x_in/z and b_in/c_in are views of one product each."""
+    x_in/z and b_in/c_in are views of one product each. A block of
+    ``w_xz``'s inner dim (a mesh's ``model`` axis) gives this rank's
+    heads of x_in, z, dt_raw and A; B and C, whole, enter its heads'
+    work through ``pvary``."""
     b, s, d = h.shape
-    din, n = cfg.d_inner, cfg.ssm_state
+    mesh = current_mesh()
+    w_xz, w_bc, w_dt = (fsdp_gather(p[n], 0, d, mesh) for n in ("w_xz", "w_bc", "w_dt"))
+    din, n = w_xz.shape[2], cfg.ssm_state
     xc = h.to(torch.bfloat16).reshape(b * s, d)
+    if din != cfg.d_inner:                      # tensor-parallel over the heads
+        if w_dt.shape[1] * cfg.ssm_head_dim != din:
+            raise ValueError(f"{cfg.name}: the model axis splits d_inner {cfg.d_inner} "
+                             f"but not the {cfg.ssm_heads} SSM heads")
+        xc = tp_enter(xc, mesh)
+        w_bc = tp_enter(w_bc, mesh)
 
     def proj(w):
         return xc @ w.to(torch.bfloat16).reshape(d, -1)
 
-    xz = proj(p["w_xz"]).view(b, s, 2, din)
-    bc = proj(p["w_bc"]).view(b, s, 2, n)
-    dt_raw = proj(p["w_dt"]).view(b, s, cfg.ssm_heads)
+    xz = proj(w_xz).view(b, s, 2, din)
+    bc = proj(w_bc).view(b, s, 2, n)
+    dt_raw = proj(w_dt).view(b, s, w_dt.shape[1])
     A = -torch.exp(p["A_log"].float())
     return xz[..., 0, :], xz[..., 1, :], bc[..., 0, :], bc[..., 1, :], dt_raw, A
 
@@ -221,14 +299,19 @@ def _ssm_inputs(cfg: ModelConfig, p: dict, h: torch.Tensor):
 def _ssm_scan_inputs(cfg: ModelConfig, p: dict, x_in, b_in, c_in, dt_raw):
     """Conv, silu and softplus over a whole prompt (``model.py:113-120``):
     the scan's xh (B,S,H,P), dt (B,S,H) f32, B and C (B,S,N) contiguous,
-    and the conv states (the last K-1 inputs of x, B, C)."""
-    b, s, _ = x_in.shape
+    and the conv states (the last K-1 inputs of x, B, C). H is this
+    rank's heads where x_in is its block."""
+    b, s, din = x_in.shape
+    conv_b, conv_c = p["conv_b"], p["conv_c"]
+    if din != cfg.d_inner:
+        mesh = current_mesh()
+        conv_b, conv_c = tp_enter(conv_b, mesh), tp_enter(conv_c, mesh)
     x_conv, st_x = ssm_mod.causal_conv(x_in, p["conv_x"].to(x_in.dtype))
-    b_conv, st_b = ssm_mod.causal_conv(b_in, p["conv_b"].to(b_in.dtype))
-    c_conv, st_c = ssm_mod.causal_conv(c_in, p["conv_c"].to(c_in.dtype))
+    b_conv, st_b = ssm_mod.causal_conv(b_in, conv_b.to(b_in.dtype))
+    c_conv, st_c = ssm_mod.causal_conv(c_in, conv_c.to(c_in.dtype))
     x_conv, b_conv, c_conv = F.silu(x_conv), F.silu(b_conv), F.silu(c_conv)
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
-    xh = x_conv.view(b, s, cfg.ssm_heads, cfg.ssm_head_dim)
+    xh = x_conv.view(b, s, din // cfg.ssm_head_dim, cfg.ssm_head_dim)
     return xh, dt, b_conv.contiguous(), c_conv.contiguous(), (st_x, st_b, st_c)
 
 
@@ -242,7 +325,7 @@ def _ssm_sequence(cfg: ModelConfig, p: dict, x_in, b_in, c_in, dt_raw, A, *,
     Pallas kernel's; the JAX prefill and default forward call
     ``ssd_chunked``, whose y has x's dtype (bf16), so the kernel's y is
     rounded to it as well."""
-    b, s, _ = x_in.shape
+    b, s, din = x_in.shape
     xh, dt, b_conv, c_conv, states = _ssm_scan_inputs(cfg, p, x_in, b_in, c_in, dt_raw)
     if use_kernel(impl, xh):
         y, hfin = ssd_ops.ssd_scan(xh, dt, A, b_conv, c_conv, chunk=cfg.ssm_chunk)
@@ -250,7 +333,7 @@ def _ssm_sequence(cfg: ModelConfig, p: dict, x_in, b_in, c_in, dt_raw, A, *,
     else:
         y, hfin = ssm_mod.ssd_chunked(xh, dt, A, b_conv, c_conv, chunk=cfg.ssm_chunk)
     y = y + xh.float() * p["D"].float()[None, None, :, None]
-    return y.reshape(b, s, cfg.d_inner), hfin, states
+    return y.reshape(b, s, din), hfin, states
 
 
 def _ssm_step(cfg: ModelConfig, p: dict, x_in, b_in, c_in, dt_raw, A,
@@ -277,13 +360,25 @@ def _ssm_out(cfg: ModelConfig, p: dict, y: torch.Tensor, z: torch.Tensor,
              dtype: torch.dtype, row: bool = False) -> torch.Tensor:
     """Mamba2's gated RMSNorm ``rmsnorm(y * silu(z), norm)`` in f32 and
     the bf16 out product (``model.py:141-146``): ``row_parallel`` where
-    the JAX block takes it (``row``), the plain product in ``prefill``."""
+    the JAX block takes it (``row``), the plain product in ``prefill``.
+    This rank's block of the inner dim (y, z, ``norm`` and ``out``'s rows)
+    takes the norm's mean square over ``model`` and the out product
+    row-parallel."""
     b, s, din = y.shape
-    y = rmsnorm(y.float() * F.silu(z.float()), p["norm"], cfg.norm_eps)
+    g = y.float() * F.silu(z.float())
+    if din != cfg.d_inner:
+        mesh = current_mesh()
+        sq = all_reduce((g * g).sum(dim=-1, keepdim=True), mesh.get_group("model"))
+        var = tp_enter(sq, mesh) / torch.tensor(float(cfg.d_inner), device=g.device)
+        g = g * torch.rsqrt(var + cfg.norm_eps) * p["norm"].float()
+        out = fsdp_gather(p["out"], 1, cfg.d_model, mesh)
+        return tp_product(g, out, 2, mesh).to(dtype)
+    y = rmsnorm(g, p["norm"], cfg.norm_eps)
+    w_out = fsdp_gather(p["out"], 1, cfg.d_model, current_mesh())
     if row:
-        return row_parallel(y.to(torch.bfloat16), p["out"].to(torch.bfloat16),
+        return row_parallel(y.to(torch.bfloat16), w_out.to(torch.bfloat16),
                             x_shard_dim=2).to(dtype)
-    out = y.to(torch.bfloat16).reshape(b * s, din) @ p["out"].to(torch.bfloat16)
+    out = y.to(torch.bfloat16).reshape(b * s, din) @ w_out.to(torch.bfloat16)
     return out.view(b, s, -1).to(dtype)
 
 
@@ -314,7 +409,7 @@ def _ffn(cfg: ModelConfig, kind: dict, p: dict, x: torch.Tensor,
                              top_k=cfg.num_experts_per_tok, activation=act,
                              capacity_factor=capacity_factor)
         return x + y, metrics.aux_loss
-    return x + mlp(h, p["mlp"], act), None
+    return x + mlp(h, p["mlp"], act, d_ff=cfg.d_ff), None
 
 
 def apply_layer(cfg: ModelConfig, slot: int, p: dict, x: torch.Tensor, *,
@@ -400,11 +495,19 @@ def _head_table(cfg: ModelConfig, params: PyTree) -> torch.Tensor:
             else params["lm_head"]["w"])
 
 
-def logits_for(cfg: ModelConfig, params: PyTree, hidden: torch.Tensor) -> torch.Tensor:
-    """Full f32 logits (B,S,V), or (B,S,C,V) for codebooks, from bf16
-    products (``model.py:221-233``)."""
-    table = _head_table(cfg, params).to(torch.bfloat16)
+def _head(cfg: ModelConfig, params: PyTree, hidden: torch.Tensor):
+    """(the head table in bf16, whole on d_model; hidden in bf16; the
+    table's first vocab row if it is this rank's vocab block, else None).
+    A vocab block's hidden enters through ``pvary``."""
+    mesh = current_mesh()
+    table = fsdp_gather(_head_table(cfg, params), -1, cfg.d_model, mesh)
+    lo = _vocab_lo(cfg, table, mesh)
     h = hidden.to(torch.bfloat16)
+    return table.to(torch.bfloat16), (h if lo is None else tp_enter(h, mesh)), lo
+
+
+def _head_logits(cfg: ModelConfig, h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """f32 logits of bf16 products, soft-capped where the config says."""
     if cfg.num_codebooks > 1:
         logits = torch.einsum("bsd,cvd->bscv", h, table).float()
     else:
@@ -414,19 +517,36 @@ def logits_for(cfg: ModelConfig, params: PyTree, hidden: torch.Tensor) -> torch.
     return logits
 
 
+def logits_for(cfg: ModelConfig, params: PyTree, hidden: torch.Tensor) -> torch.Tensor:
+    """Full f32 logits (B,S,V), or (B,S,C,V) for codebooks, from bf16
+    products (``model.py:221-233``); a vocab block's logits gathered over
+    ``model``."""
+    table, h, lo = _head(cfg, params, hidden)
+    logits = _head_logits(cfg, h, table)
+    if lo is not None:
+        logits = all_gather(logits, current_mesh().get_group("model"), -1)
+    return logits
+
+
 def _ce_chunk(cfg: ModelConfig, h: torch.Tensor, lab: torch.Tensor,
-              msk: torch.Tensor, table: torch.Tensor):
+              msk: torch.Tensor, table: torch.Tensor, lo: Optional[int] = None,
+              group=None):
     """One chunk of ``cross_entropy``: (sum of masked CE, sum of masked
-    lse²). The head product is bf16, the logsumexp f32."""
-    h = h.to(torch.bfloat16)
-    if cfg.num_codebooks > 1:
-        logits = torch.einsum("bsd,cvd->bscv", h, table).float()
+    lse²). The head product is bf16, the logsumexp f32. With ``lo`` the
+    table is this rank's vocab block from row ``lo``: the logsumexp takes
+    the max and the sum of the exponentials over ``group``'s blocks, and
+    the label's logit comes from the block that holds it."""
+    logits = _head_logits(cfg, h, table)
+    if lo is None:
+        lse = torch.logsumexp(logits, dim=-1)            # (B,C) or (B,C,cb)
+        ll = torch.gather(logits, -1, lab.long()[..., None])[..., 0]
     else:
-        logits = (h @ table.T).float()
-    if cfg.final_logit_softcap:
-        logits = cfg.final_logit_softcap * torch.tanh(logits / cfg.final_logit_softcap)
-    lse = torch.logsumexp(logits, dim=-1)                # (B,C) or (B,C,cb)
-    ll = torch.gather(logits, -1, lab.long()[..., None])[..., 0]
+        m = all_reduce(logits.detach().amax(dim=-1), group, dist.ReduceOp.MAX)
+        lse = torch.log(all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), group)) + m
+        lab = lab.long() - lo
+        inside = (lab >= 0) & (lab < logits.shape[-1])
+        ll = torch.gather(logits, -1, torch.where(inside, lab, 0)[..., None])[..., 0]
+        ll = all_reduce(ll * inside, group)
     ce = lse - ll
     if cfg.num_codebooks > 1:
         ce, lse = ce.mean(-1), lse.mean(-1)
@@ -443,15 +563,17 @@ def cross_entropy(cfg: ModelConfig, params: PyTree, hidden: torch.Tensor,
     over them]; loss_mask (B,S) f32. The chunk halves while it does not
     divide S. Each chunk runs under ``torch.utils.checkpoint`` when
     autograd records, so its (B, chunk, V) logits are recomputed in the
-    backward and (B, S, V) never exists at once."""
+    backward and (B, S, V) never exists at once. A vocab-parallel head
+    (``_ce_chunk``'s ``lo``) gives every rank of ``model`` the same loss."""
     b, s, d = hidden.shape
     chunk = min(chunk, s)
     while s % chunk:
         chunk //= 2
-    table = _head_table(cfg, params).to(torch.bfloat16)
+    table, hidden, lo = _head(cfg, params, hidden)
     zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
     tot, cnt, zacc = zero, zero, zero
-    body = functools.partial(_ce_chunk, cfg)
+    body = functools.partial(_ce_chunk, cfg, lo=lo,
+                             group=None if lo is None else current_mesh().get_group("model"))
     for c0 in range(0, s, chunk):
         args = (hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
                 loss_mask[:, c0:c0 + chunk], table)

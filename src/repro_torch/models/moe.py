@@ -48,7 +48,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.collectives import all_gather, all_reduce, pvary, shard
+from repro_torch.core.collectives import all_reduce, pvary, shard
+from repro_torch.models.layers import fsdp_gather
 from repro_torch.parallel.sharding import current_mesh
 
 
@@ -199,17 +200,6 @@ def _moe_local(x: torch.Tensor, params: dict, *, num_experts: int, top_k: int,
     return y.reshape(b, s, d).to(x.dtype), metrics
 
 
-def _fsdp_gather(w: torch.Tensor, dim: int, d: int, mesh) -> torch.Tensor:
-    """``w`` whole on its d_model dim ``dim``: as it is if whole, else the
-    all-gather of its FSDP shards over ``data``."""
-    if w.shape[dim] == d:
-        return w
-    if w.shape[dim] * mesh.shape.get("data", 1) != d:
-        raise ValueError(f"dim {dim} of {tuple(w.shape)} is neither d_model {d} "
-                         f"nor its share over data")
-    return all_gather(w, mesh.get_group("data"), dim)
-
-
 def _moe_ep(x: torch.Tensor, params: dict, mesh, *, num_experts: int, top_k: int,
             activation, capacity_factor: Optional[float], ep: bool, bax):
     """The expert-parallel branch (``moe.py:199-251``) on this rank's
@@ -224,9 +214,9 @@ def _moe_ep(x: torch.Tensor, params: dict, mesh, *, num_experts: int, top_k: int
     w_in, w_out = params["w_in"], params["w_out"]
     if w_in.shape[0] != e_local:
         w_in, w_out = (shard(w, mesh.get_group("model"), 0) for w in (w_in, w_out))
-    router = _fsdp_gather(params["router"], 0, d, mesh)
-    w_in = _fsdp_gather(w_in, 1, d, mesh)
-    w_out = _fsdp_gather(w_out, 2, d, mesh)
+    router = fsdp_gather(params["router"], 0, d, mesh)
+    w_in = fsdp_gather(w_in, 1, d, mesh)
+    w_out = fsdp_gather(w_out, 2, d, mesh)
     t = b_loc * s_loc
     x2d = x.reshape(t, d)
     weights, idx, probs = router_topk(x2d, router, top_k)

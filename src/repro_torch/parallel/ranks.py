@@ -92,7 +92,7 @@ def spawn(fn: Callable, world: int, *args,
         except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
             errors = sorted(f for f in os.listdir(tmp) if f.startswith("error."))
             detail = "".join(open(os.path.join(tmp, f)).read() for f in errors[:1])
-            raise RuntimeError(f"a rank failed:\n{detail or e}") from None
+            raise RuntimeError(f"a rank failed ({e}):\n{detail}") from None
         finally:
             for p in ctx.processes:
                 if p.is_alive():

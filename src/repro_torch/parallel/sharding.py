@@ -23,6 +23,12 @@ The JAX package's runtime objects map onto ``torch.distributed``:
 - ``constrain`` is the identity on a plain tensor (each rank computes
   its replicated share, as JAX's partitioner would leave it) and
   redistributes a DTensor.
+- A tree held in blocks (the train state on a mesh): ``tree_layout``
+  gives each leaf's whole shape and spec (a ``BlockSpec``), ``place``
+  cuts a whole tree into this rank's blocks, as ``jax.device_put`` with
+  the tree's shardings leaves one device's ``addressable_shards``, and
+  ``gather`` is its inverse. The blocks are plain tensors; the layout
+  says what they are.
 
 ``logical_to_spec`` takes any object with a ``.shape`` mapping, so rule
 tests run on a duck-typed mesh of any size without processes.
@@ -30,8 +36,11 @@ tests run on a duck-typed mesh of any size without processes.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import itertools
 import logging
-from typing import NamedTuple, Optional, Sequence, Tuple, Union
+import math
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -169,6 +178,7 @@ class Mesh:
         if dist.get_world_size() < max(ranks) + 1:
             raise ValueError(f"mesh ranks {ranks} exceed the world of {dist.get_world_size()}")
         self.ranks = torch.tensor(ranks).reshape(tuple(int(s) for s in shape))
+        self._ranks = ranks
         self.device = resolve_device(device)
         self.host_mesh = DeviceMesh("cpu", self.ranks, mesh_dim_names=self.axis_names)
         coord = self.host_mesh.get_coordinate()
@@ -184,6 +194,13 @@ class Mesh:
     def get_group(self, axis: str):
         """The process group of this rank's line along ``axis``."""
         return self.host_mesh.get_group(axis)
+
+    def rank_at(self, coord: dict) -> int:
+        """The global rank at mesh coordinates ``coord`` (axis -> index)."""
+        pos = 0
+        for a in self.axis_names:
+            pos = pos * self.shape[a] + coord[a]
+        return self._ranks[pos]
 
     def index(self, axis: str) -> int:
         """This rank's coordinate along ``axis`` (``jax.lax.axis_index``);
@@ -266,8 +283,9 @@ def tree_map(fn, tree, *rest, is_leaf=None):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest), is_leaf=is_leaf)
                 for k in tree}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, t, *(r[i] for r in rest), is_leaf=is_leaf)
-                          for i, t in enumerate(tree))
+        kids = (tree_map(fn, t, *(r[i] for r in rest), is_leaf=is_leaf)
+                for i, t in enumerate(tree))
+        return type(tree)(*kids) if hasattr(tree, "_fields") else type(tree)(kids)
     return fn(tree, *rest)
 
 
@@ -283,6 +301,22 @@ def tree_shardings(logical_tree, shape_tree, mesh: Mesh, overrides=None):
 # moving shards
 # ----------------------------------------------------------------------
 
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry (None, an axis or a tuple of axes)."""
+    return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+
+
+def block_of(mesh: Mesh, entry, coord: Optional[dict] = None) -> Tuple[int, int]:
+    """(n, i): a dim split by the spec entry ``entry`` is cut into n
+    blocks and this rank (or the rank at ``coord``, axis -> index) holds
+    block i, the axes taken first-outermost, as ``PartitionSpec``'s."""
+    n, idx = 1, 0
+    for a in spec_axes(entry):
+        n *= mesh.shape[a]
+        idx = idx * mesh.shape[a] + (mesh.index(a) if coord is None else coord[a])
+    return n, idx
+
+
 def local_shard(x: torch.Tensor, mesh: Mesh, spec: Spec) -> torch.Tensor:
     """This rank's block of the global tensor ``x`` (held whole by every
     rank) under ``spec``, cut locally with no communication: what a
@@ -291,11 +325,8 @@ def local_shard(x: torch.Tensor, mesh: Mesh, spec: Spec) -> torch.Tensor:
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
-        axes = entry if isinstance(entry, tuple) else (entry,)
-        n, idx = 1, 0
-        for a in axes:
-            n *= mesh.shape[a]
-            idx = idx * mesh.shape[a] + mesh.index(a)
+        axes = spec_axes(entry)
+        n, idx = block_of(mesh, entry)
         if x.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {axes}")
         step = x.shape[dim] // n
@@ -362,3 +393,250 @@ def constrain(x: torch.Tensor, *logical: Optional[str],
     if tuple(x.placements) == sh.placements and x.device_mesh is mesh.device_mesh:
         return x
     return redistribute(x, sh)
+
+
+# ----------------------------------------------------------------------
+# a tree held in blocks
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    """Where one leaf of a tree lives on a mesh: its whole ``shape`` and
+    its ``spec`` (JAX's ``NamedSharding`` of the leaf)."""
+    shape: Tuple[int, ...]
+    spec: Spec
+
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes that split the leaf."""
+        return tuple(a for entry in self.spec for a in spec_axes(entry))
+
+    def is_block(self, x: torch.Tensor) -> bool:
+        """``x`` is a block of the leaf (not the whole leaf)."""
+        return tuple(x.shape) != self.shape
+
+
+def _is_layout_leaf(x) -> bool:
+    return x is None or isinstance(x, BlockSpec)
+
+
+def tree_layout(logical_tree, shape_tree, mesh, overrides=None):
+    """A tree of ``BlockSpec``: each leaf's whole shape (from ``shape_tree``:
+    tensors, real or on the ``meta`` device) and its spec under ``mesh``,
+    a dim that does not divide replicated (``logical_to_spec``'s rule, as
+    ``tree_shardings``). A leaf that is not a tensor (an optimizer's step
+    count) gets None: every rank holds it as it is."""
+    def leaf(lg, t):
+        if not isinstance(t, torch.Tensor):
+            return None
+        return BlockSpec(tuple(t.shape), logical_to_spec(lg, mesh, dim_sizes=t.shape,
+                                                         overrides=overrides))
+    return tree_map(leaf, logical_tree, shape_tree, is_leaf=is_logical)
+
+
+def place(tree, layout, mesh):
+    """The whole ``tree`` (held by every rank) as this rank's blocks under
+    ``layout``: each split leaf cut (``local_shard``) into a copy of its
+    own, so the whole tree can be freed; a replicated leaf is kept as it
+    is. No communication."""
+    def cut(b, x):
+        if b is None or not isinstance(x, torch.Tensor) or not b.axes():
+            return x
+        if tuple(x.shape) != b.shape:
+            raise ValueError(f"place: a leaf of {tuple(x.shape)}, want the whole {b.shape}")
+        return local_shard(x, mesh, b.spec).clone(memory_format=torch.contiguous_format)
+    return tree_map(cut, layout, tree, is_leaf=_is_layout_leaf)
+
+
+def gather_leaf(x: torch.Tensor, b: BlockSpec, mesh) -> torch.Tensor:
+    """One leaf whole: a block all-gathered over the axes that split it
+    (innermost axis first, as ``local_shard`` cuts them outermost first);
+    a whole leaf as it is. Every rank of those axes calls it."""
+    from repro_torch.core.collectives import all_gather
+    if not b.is_block(x):
+        return x
+    for dim, entry in enumerate(b.spec):
+        for a in reversed(spec_axes(entry)):
+            x = all_gather(x, mesh.get_group(a), dim)
+    return x
+
+
+def gather(tree, layout, mesh):
+    """``place``'s inverse: every leaf of ``tree`` whole on every rank."""
+    return tree_map(lambda b, x: x if b is None or not isinstance(x, torch.Tensor)
+                    else gather_leaf(x, b, mesh), layout, tree, is_leaf=_is_layout_leaf)
+
+
+# ----------------------------------------------------------------------
+# runs of a flattened leaf (the int8 moments' layout)
+# ----------------------------------------------------------------------
+
+Box = Tuple[Tuple[int, int], ...]
+
+
+def range_boxes(shape: Sequence[int], lo: int, hi: int) -> List[Box]:
+    """The flat range [lo, hi) of a row-major array of ``shape`` as boxes
+    (a (start, stop) per dim), in order: each box one contiguous stretch
+    of the range, a partial leading row, whole rows, a partial last row,
+    the partial rows cut the same way one dim in."""
+    if lo >= hi:
+        return []
+    if not shape:
+        return [()]
+    inner = math.prod(shape[1:])
+    first, last = -(-lo // inner), hi // inner          # the whole rows [first, last)
+    rest = tuple(shape[1:])
+    if first > last:                                    # inside row lo // inner
+        r = lo // inner
+        return [((r, r + 1),) + b for b in range_boxes(rest, lo - r * inner, hi - r * inner)]
+    out = []
+    if lo < first * inner:
+        r = first - 1
+        out += [((r, r + 1),) + b for b in range_boxes(rest, lo - r * inner, inner)]
+    if first < last:
+        out.append(((first, last),) + tuple((0, n) for n in rest))
+    if last * inner < hi:
+        out += [((last, last + 1),) + b for b in range_boxes(rest, 0, hi - last * inner)]
+    return out
+
+
+def _block_box(b: BlockSpec, mesh, coord: dict) -> Box:
+    box = []
+    for n, entry in zip(b.shape, b.spec):
+        k, i = block_of(mesh, entry, coord)
+        box.append((i * n // k, (i + 1) * n // k))
+    return tuple(box)
+
+
+def _meet(a: Box, b: Box) -> Optional[Box]:
+    box = tuple((max(x0, y0), min(x1, y1)) for (x0, x1), (y0, y1) in zip(a, b))
+    return box if all(x0 < x1 for x0, x1 in box) else None
+
+
+def _cut(x: torch.Tensor, box: Box, origin: Sequence[int]) -> torch.Tensor:
+    for dim, ((start, stop), o) in enumerate(zip(box, origin)):
+        x = x.narrow(dim, start - o, stop - start)
+    return x
+
+
+class RunExchange:
+    """Moves one leaf between its blocks (``b``, the params' layout) and
+    its runs (the flattened leaf cut into equal contiguous runs over the
+    axes of the spec entry ``entry``, the tail past the leaf's size read
+    as zeros): each value crosses once, from the rank that holds it to
+    the rank that needs it, in host memory (gloo point to point between
+    the ranks that differ only on those axes and the block's). What an
+    all-to-all does; ``gather`` would move every rank the whole leaf."""
+
+    def __init__(self, b: BlockSpec, entry, mesh, run_size: int):
+        n = math.prod(b.shape)
+        axes = [a for a in mesh.axis_names
+                if a in spec_axes(entry) or a in b.axes()]
+        me = dict(mesh.coord)
+        # a value held by several ranks comes from the one that matches
+        # this rank on the axes that replicate it
+        same_block = [a for a in axes if a not in b.axes()]
+        same_run = [a for a in axes if a not in spec_axes(entry)]
+        self.peers = []     # (global rank, block box, run boxes, it, block source, run source)
+        for idx in itertools.product(*(range(mesh.shape[a]) for a in axes)):
+            coord = dict(me, **dict(zip(axes, idx)))
+            rank = mesh.rank_at(coord)
+            _, r = block_of(mesh, entry, coord)
+            lo = r * run_size
+            runs = list(self._offsets(range_boxes(b.shape, lo, min(lo + run_size, n))))
+            self.peers.append((rank, _block_box(b, mesh, coord), runs, coord == me,
+                               all(coord[a] == me[a] for a in same_block),
+                               all(coord[a] == me[a] for a in same_run)))
+        self.mine = next(p for p in self.peers if p[3])
+        self.run_size = run_size
+
+    @staticmethod
+    def _offsets(boxes):
+        off = 0
+        for box in boxes:
+            yield box, off
+            off += math.prod(stop - start for start, stop in box)
+
+    @staticmethod
+    def _seg(run: torch.Tensor, rbox: Box, off: int) -> torch.Tensor:
+        """The stretch of ``run`` from ``off`` that holds the box ``rbox``,
+        viewed as the box."""
+        shape = tuple(e - s for s, e in rbox)
+        return run[off:off + math.prod(shape)].view(shape)
+
+    @staticmethod
+    def _swap(sends, recvs):
+        """Point to point: ``sends`` and ``recvs`` are (global rank,
+        tensor) lists; the k-th tensor between two ranks carries tag k on
+        both sides (each side lists a pair's pieces in the same order)."""
+        ops, tags = [], {}
+        for op, items in ((dist.isend, sends), (dist.irecv, recvs)):
+            for rank, t in items:
+                k = tags[(op, rank)] = tags.get((op, rank), -1) + 1
+                ops.append(dist.P2POp(op, t, rank, tag=k))
+        if ops:
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+
+    def to_run(self, block: torch.Tensor) -> torch.Tensor:
+        """This rank's run (host memory, ``block``'s dtype) of the leaf
+        whose block it holds."""
+        from repro_torch.core.collectives import to_host
+        block = to_host(block.detach())
+        box_me, runs_me = self.mine[1:3]
+        run = torch.zeros(self.run_size, dtype=block.dtype)
+        sends, recvs, places = [], [], []
+        for rank, box, runs, own, source, _ in self.peers:
+            if not source:
+                continue
+            for rbox, _ in runs:                          # what `rank` needs of my block
+                cut = _meet(rbox, box_me)
+                if cut is not None and not own:
+                    sends.append((rank, _cut(block, cut, [s for s, _ in box_me]).contiguous()))
+            for rbox, off in runs_me:                     # what I need of `rank`'s block
+                cut = _meet(rbox, box)
+                if cut is None:
+                    continue
+                dst = _cut(self._seg(run, rbox, off), cut, [s for s, _ in rbox])
+                if own:
+                    dst.copy_(_cut(block, cut, [s for s, _ in box_me]))
+                else:
+                    buf = torch.empty(dst.shape, dtype=block.dtype)
+                    recvs.append((rank, buf))
+                    places.append((dst, buf))
+        self._swap(sends, recvs)
+        for dst, buf in places:
+            dst.copy_(buf)
+        return run
+
+    def to_block(self, run: torch.Tensor, block: torch.Tensor) -> None:
+        """Writes this rank's block (``block``, in place, on its device)
+        from the ranks' runs (``run``: this rank's, as ``to_run`` made it)."""
+        from repro_torch.core.collectives import host_back, to_host
+        run = to_host(run.detach())
+        box_me, runs_me = self.mine[1:3]
+        out = torch.empty(block.shape, dtype=block.dtype)
+        sends, recvs, places = [], [], []
+        for rank, box, runs, own, _, source in self.peers:
+            if not source:
+                continue
+            for rbox, off in runs_me:                     # what `rank`'s block needs of my run
+                cut = _meet(rbox, box)
+                if cut is None or own:
+                    continue
+                sends.append((rank, _cut(self._seg(run, rbox, off), cut,
+                                         [s for s, _ in rbox]).contiguous()))
+            for rbox, off in runs:                        # what I need of `rank`'s run
+                cut = _meet(rbox, box_me)
+                if cut is None:
+                    continue
+                dst = _cut(out, cut, [s for s, _ in box_me])
+                if own:
+                    dst.copy_(_cut(self._seg(run, rbox, off), cut, [s for s, _ in rbox]))
+                else:
+                    buf = torch.empty(dst.shape, dtype=block.dtype)
+                    recvs.append((rank, buf))
+                    places.append((dst, buf))
+        self._swap(sends, recvs)
+        for dst, buf in places:
+            dst.copy_(buf)
+        block.copy_(host_back(out, block.device))

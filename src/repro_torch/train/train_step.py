@@ -9,17 +9,28 @@ forward + CE, backward, clip, AdamW.
   (``models/model.py::forward``);
 - ``moments_int8``: AdamW moments stored blockwise-int8, through the CUDA
   quantize / dequantize kernels on the card;
-- ``mesh``: SPMD ranks (``parallel/sharding.Mesh``), each holding the
-  whole params and the whole global batch. A rank takes its share of
-  the batch over the batch axes (``pod``, ``data``; ``model`` ranks
-  compute the same share), and its grads, loss and parts are averaged
-  over those axes by one exact all-reduce each, where JAX's SPMD
-  partitioner takes the mean over the batch. With ``pod_sync=
+- ``mesh``: SPMD ranks (``parallel/sharding.Mesh``), each given the
+  whole global batch and the train state either in blocks (the
+  launcher's: ``launch/inputs.train_layout``, JAX's ``param_shardings``
+  and ``_opt_logical``, cut by ``parallel/sharding.place``) or whole. A
+  rank takes its share of the batch over the batch axes (``pod``,
+  ``data``; ``model`` ranks compute the same share). From blocks the
+  step runs under ``use_mesh(mesh)`` and the model computes FSDP over
+  ``data`` and tensor-parallel over ``model`` (``models/model.py``); a
+  block's grad comes back as a block, and a leaf split over ``data``
+  has been summed over it by its gather's backward (a reduce-scatter),
+  so it is divided by the axis's size and not all-reduced again; the
+  optimizer steps the blocks (``optim/adamw.py``). From whole params
+  every rank computes the whole model on its share. Either way the
+  grads (of a replicated axis), loss and parts are averaged over the
+  batch axes by one exact all-reduce each, where JAX's SPMD partitioner
+  takes the mean over the batch. With ``pod_sync=
   "compressed"`` and a ``pod`` axis of size > 1 (``train_step.py:
   160-191``), the exact mean runs over ``data`` only (the pod's share,
   with "batch" resolved to data), and each grad leaf crosses the pods
   through the int8 ring (``core/collectives.compressed_ring_all_reduce_inner``
-  of g / n_pod), the LineFS "compress before the slow path" choice;
+  of g / n_pod, a block's ring on the block), the LineFS "compress
+  before the slow path" choice;
   loss and parts take the pods' mean. Each shard's CE is weighted by
   its share of the mask count (one all-reduce of the counts per
   microbatch), so the mean over the shards is JAX's global mean,
@@ -37,18 +48,21 @@ Grads come from ``torch.autograd.grad`` on the f32 master leaves.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Sequence
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.collectives import all_reduce, compressed_ring_all_reduce_inner
+from repro_torch.launch.inputs import train_layout
 from repro_torch.models import model as M
 from repro_torch.models.attention import train_impl
 from repro_torch.models.moe import aux_shards
 from repro_torch.optim.adamw import adamw_update, tree_leaves, tree_unflatten
 from repro_torch.optim.schedule import lr_at
-from repro_torch.parallel.sharding import local_shard, logical_to_spec, rule_overrides
+from repro_torch.parallel.sharding import (local_shard, logical_to_spec, rule_overrides,
+                                           spec_axes, use_mesh)
 
 PyTree = Any
 Batch = Dict[str, torch.Tensor]
@@ -116,15 +130,12 @@ def split_by_shares(batch: Batch, shares: Sequence[int]) -> list:
     return subs
 
 
-def _axes(entry) -> tuple:
-    return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
-
-
-def _mean_over(xs, mesh, axes):
+def _mean_over(xs, mesh, axes, summed=None):
     """Each tensor of ``xs`` averaged over the mesh ``axes`` (one exact
-    all-reduce per axis, then one division by a device tensor). The list
-    ``xs`` is returned with each item replaced as it is averaged, so no
-    more than one tensor is held twice."""
+    all-reduce per axis, then one division by a device tensor); item i
+    skips the all-reduce over the axes in ``summed[i]``, over which it is
+    a sum already. The list ``xs`` is returned with each item replaced as
+    it is averaged, so no more than one tensor is held twice."""
     if not axes:
         return xs
     n = 1
@@ -132,7 +143,8 @@ def _mean_over(xs, mesh, axes):
         n *= mesh.shape[a]
     for i, x in enumerate(xs):
         for a in axes:
-            x = all_reduce(x, mesh.get_group(a))
+            if summed is None or a not in summed[i]:
+                x = all_reduce(x, mesh.get_group(a))
         xs[i] = x / torch.tensor(float(n), device=x.device)
     return xs
 
@@ -146,11 +158,12 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, impl: str = "auto",
     (per-node microbatch counts): equal shares take the unchanged plain
     path, so they are bit-identical to passing none; skewed shares run
     each node's sub-batch and combine the sums into the same global
-    mean. With ``mesh``, every rank calls it with the same params and
-    the same global batch (module docstring). MoE layers dispatch at
-    ``capacity_factor``."""
+    mean. With ``mesh``, every rank calls it with the same global batch
+    and its blocks of the train state, or the whole state (module
+    docstring). MoE layers dispatch at ``capacity_factor``."""
     moments = "int8" if run.moments_int8 else "f32"
     aux_w = cfg.router_aux_loss if cfg.num_experts else 0.0
+    layout = None if mesh is None else train_layout(cfg, mesh, moments)
 
     def grads_of(params, batch, weigh=None):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
@@ -209,8 +222,9 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, impl: str = "auto",
             return mean(*scan_sum(params, batch, k, weigh), k)
         return grads_of(params, batch, weigh)
 
-    def on_mesh(params, batch, node_shares):
-        """This rank's share of the batch, its grads and their means."""
+    def on_mesh(params, batch, node_shares, sharded):
+        """This rank's share of the batch, its grads and their means;
+        ``sharded``: the params are this rank's blocks."""
         b = next(iter(batch.values())).shape[0]
         npod = mesh.shape.get("pod", 1)
         compressed = run.pod_sync == "compressed" and npod > 1
@@ -218,10 +232,11 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, impl: str = "auto",
             if b % npod:
                 raise ValueError(f"batch of {b} does not split over {npod} pods")
             with rule_overrides({"batch": "data", "decode_batch": "data"}):
-                mean_axes = _axes(logical_to_spec(("batch",), mesh, dim_sizes=(b // npod,))[0])
+                mean_axes = spec_axes(logical_to_spec(("batch",), mesh,
+                                                      dim_sizes=(b // npod,))[0])
             batch = {k: local_shard(v, mesh, ("pod",)) for k, v in batch.items()}
         else:
-            mean_axes = _axes(logical_to_spec(("batch",), mesh, dim_sizes=(b,))[0])
+            mean_axes = spec_axes(logical_to_spec(("batch",), mesh, dim_sizes=(b,))[0])
         # this rank's share of each microbatch of the (pod's) batch, in
         # order, so that its microbatch j is its share of JAX's microbatch j
         nmb = sum(node_shares) if skewed(node_shares) else run.microbatch or 1
@@ -243,12 +258,16 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, impl: str = "auto",
             nt = torch.tensor(float(n), device=own.device)
             return torch.clamp(own, min=1.0) * nt / torch.clamp(tot, min=1.0)
 
-        loss, parts, grads = accumulate(params, local, node_shares=node_shares,
-                                        weigh=weigh if mean_axes else None)
+        with use_mesh(mesh) if sharded else contextlib.nullcontext():
+            loss, parts, grads = accumulate(params, local, node_shares=node_shares,
+                                            weigh=weigh if mean_axes else None)
         names = list(parts)
         scalars = _mean_over([torch.stack([loss] + [parts[k] for k in names])], mesh,
                              mean_axes)[0]
-        grads = _mean_over(grads, mesh, mean_axes)
+        # a block split over a batch axis was summed over it by its gather's backward
+        summed = [b.axes() if sharded and b.is_block(g) else ()
+                  for g, b in zip(grads, tree_leaves(layout[0]))]
+        grads = _mean_over(grads, mesh, mean_axes, summed)
         if compressed:
             pod = mesh.get_group("pod")
             npod_t = torch.tensor(float(npod), device=scalars.device)
@@ -259,17 +278,20 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, impl: str = "auto",
 
     def train_step(params, opt_state, batch, step,
                    node_shares: Optional[Sequence[int]] = None):
+        sharded = layout is not None and any(
+            b.is_block(p) for p, b in zip(tree_leaves(params), tree_leaves(layout[0])))
         if mesh is None:
             loss, parts, grads = accumulate(params, batch, node_shares=node_shares)
         else:
-            loss, parts, grads = on_mesh(params, batch, node_shares)
+            loss, parts, grads = on_mesh(params, batch, node_shares, sharded)
         grads = tree_unflatten(params, grads)
         lr = lr_at(step, base_lr=run.learning_rate,
                    warmup_steps=run.warmup_steps, total_steps=run.total_steps)
         params2, opt2, om = adamw_update(
             grads, opt_state, params, lr=lr, b1=run.b1, b2=run.b2,
             eps=run.eps, weight_decay=run.weight_decay,
-            grad_clip=run.grad_clip, moments=moments)
+            grad_clip=run.grad_clip, moments=moments,
+            **(dict(mesh=mesh, layout=layout) if sharded else {}))
         metrics = {"loss": loss, "lr": lr, **parts, **om}
         return params2, opt2, metrics
 

@@ -19,7 +19,9 @@
   ``make_production_mesh`` and ``SHAPES`` are swapped for the reduced
   config, the (2, 2, 2) test mesh and the same small shapes; no JAX file
   changes). Every cell on this sharded mesh records collectives, on
-  named axes.
+  named axes. The train cells trace the step on the param and optimizer
+  shards themselves: reduced granite-moe's makes fewer all-gathers than
+  the whole-weight trace's 55 (printed beside XLA's counts).
 - The depth fit (``trace_depth``) against the whole trace at 6 groups:
   FLOPs, HBM bytes, op and collective counts and collective bytes
   equal; the peak of the live bytes, which the fit only estimates,
@@ -238,6 +240,22 @@ def test_lower_cell_matches_jax(results, cell):
         assert got[key] == want[key], key
     assert got["argument_bytes"] == want["argument_bytes"] + UNREAD_BY_JAX.get(cell, 0)
     assert got["collective_op_counts"] and all(got["collective_axes"]), got
+
+
+#: the reduced EP train cell's all-gathers when the port's dry-run traced
+#: its step on weights gathered whole from their shards (before the train
+#: step took the blocks themselves)
+WHOLE_WEIGHT_ALL_GATHERS = 55
+
+
+def test_sharded_ep_cell_gathers_less(results):
+    """The reduced granite-moe train cell on (2, 2, 2), traced on the
+    blocks the launcher holds: the port's collectives by kind beside
+    XLA's (printed), and fewer all-gathers than the whole-weight trace."""
+    cell = "granite-moe-1b-a400m/train_4k"
+    got, want = (results[k][cell]["collective_op_counts"] for k in ("port", "jax"))
+    print(f"[parity] dryrun {cell} collectives: port {got}, JAX {want}")
+    assert 0 < got["all-gather"] < WHOLE_WEIGHT_ALL_GATHERS
 
 
 def test_depth_fit_matches_whole_trace(results):
