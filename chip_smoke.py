@@ -48,9 +48,15 @@ nothing of JAX. Phases, each fatal on failure:
              the host time per call and each launch's device time; K1 at
              head dim 256, gemma2-9b's prefill shape with its window and
              softcap at S = 512 and 4,608 and gemma-7b's at 512, it and
-             SDPA also spun; K2 at
+             SDPA also spun, and every other zoo prefill instance at S =
+             512: hd 64 (granite-moe, musicgen), hd 128 at G = 16
+             (glm4-9b) and G = 1 (moonshot); K2 at
              glm4-9b's decode shape, G = 16, on the tensor cores, at the
-             serve path's lengths and fills 64 and 1024);
+             serve path's lengths and fills 64 and 1024, and at the
+             other zoo decode shapes (ZOO_DEC_CASES: hd 256 gemma2-9b with
+             its window and softcap and gemma-7b, hd 64 granite-moe and
+             musicgen, moonshot's hd 128 at G = 1) at the serve path's
+             lengths);
              kernel, plain version and the library
              yardstick where one PyTorch call computes the same function
              (``scaled_dot_product_attention``, ``torch.mul``, which the
@@ -98,7 +104,11 @@ nothing of JAX. Phases, each fatal on failure:
              each step and through the dequantize kernel each step, and
              no attention or SSD kernel ran; every loss is finite, the
              first equal in both runs and the others within rel 1e-2;
-             ``torch.profiler`` breaks down a fourth int8 step. The int8
+             ``param_count_tree`` of the params on the card equals
+             ``cfg.param_count()``; after the int8 run's last step, the
+             moment values whose v is int8 0 under a nonzero m and the
+             step's largest |dp| / lr are printed (no limit: JAX's
+             arithmetic); ``torch.profiler`` breaks down a fourth int8 step. The int8
              run also advances simulated time (``ClusterTimeModel`` of one
              node of one H100, ``core/hw.py``): each step's line adds its
              simulated seconds and tok/s, labelled as the fabric model's;
@@ -225,7 +235,8 @@ lengths and once per fill; K1's and K2's rows also carry the staged
 runs' launches, ``staged_launches``, K4a's and K4b's the train_cluster
 failure run's, ``cluster_launches``, every row the colocate phase's
 four runs' together, ``colocate_launches``, the zoo phase's timed
-passes', ``zoo_launches``, the dist phase's per rank,
+passes', ``zoo_launches``, and a zoo shape's row its arch's,
+``arch_zoo_launches``, the dist phase's per rank,
 ``dist_launches``, and the dryrun phase's real 2-layer step's,
 ``dryrun_launches``); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -302,13 +313,28 @@ DEC_SPLIT_CASES = [(4, 1024, 16, 8, 128, None, None, (1, 1024, 300, 77)),
 DEC_PATH_LENS = (1, 1024, 300, 77)
 DEC_FILLS = (1, 64, 256, 512, 1024)
 GLM4_FILLS = (64, 1024)
-# K1 timed at head dim 256 (its tensor-core instance in bf16): gemma2-9b's
-# prefill shape (B=1, 16 q / 8 kv heads, the local layers' 4096-token
-# window and softcap 50) at a bucket and at the zoo phase's long prompt,
-# and gemma-7b's (16 q = 16 kv heads, causal, beside SDPA):
-# (arch, Hq, Hkv, window, softcap, lengths)
-ZOO_FA_CASES = [("gemma2-9b", 16, 8, 4096, 50.0, (512, 4608)),
-                ("gemma-7b", 16, 16, None, None, (512,))]
+# K1 timed at the zoo's prefill shapes (B=1, bf16, its tensor-core
+# instances): at head dim 256 gemma2-9b's (16 q / 8 kv heads, the local
+# layers' 4096-token window and softcap 50) at a bucket and at the zoo
+# phase's long prompt, and gemma-7b's (16 q = 16 kv heads, causal); at hd
+# 64 granite-moe's (16 / 8) and musicgen's (32 / 32); at hd 128 glm4-9b's
+# (32 / 2, G = 16) and moonshot's (16 / 16): (arch, Hq, Hkv, hd, window,
+# softcap, lengths)
+ZOO_FA_CASES = [("gemma2-9b", 16, 8, 256, 4096, 50.0, (512, 4608)),
+                ("gemma-7b", 16, 16, 256, None, None, (512,)),
+                ("granite-moe-1b-a400m", 16, 8, 64, None, None, (512,)),
+                ("musicgen-large", 32, 32, 64, None, None, (512,)),
+                ("glm4-9b", 32, 2, 128, None, None, (512,)),
+                ("moonshot-v1-16b-a3b", 16, 16, 128, None, None, (512,))]
+# K2 timed at the zoo's decode shapes beside internlm2's and glm4-9b's
+# (check_decode: 4 slots, max_len 1024, f32 cache, bf16 q, the serve
+# path's lengths): gemma2-9b's hd 256 with its window and softcap,
+# gemma-7b's hd 256 MHA, hd 64 (granite-moe, musicgen), moonshot's hd 128
+# at G = 1: (arch, Hq, Hkv, hd, window, softcap)
+ZOO_DEC_CASES = [("gemma2-9b", 16, 8, 256, 4096, 50.0), ("gemma-7b", 16, 16, 256, None, None),
+                 ("granite-moe-1b-a400m", 16, 8, 64, None, None),
+                 ("musicgen-large", 32, 32, 64, None, None),
+                 ("moonshot-v1-16b-a3b", 16, 16, 128, None, None)]
 # tests/test_kernels.py: SSD_CASES (B, S, H, P, N, chunk, head tile)
 SSD_CASES = [(2, 64, 4, 8, 16, 16, 2), (1, 128, 6, 16, 8, 32, 3),
              (2, 256, 8, 16, 32, 64, 8)]
@@ -636,12 +662,12 @@ def phase_kernels(torch, dev):
     torch.cuda.synchronize()
     print(f"[kernels] flash_attention wrapper: {host_us:.2f} us of host time per call "
           f"(1000 calls at S=64, no sync between)")
-    # K1 at head dim 256, the zoo path's gemma shapes (ZOO_FA_CASES)
-    for arch, hq, hkv, win, cap, lens in ZOO_FA_CASES:
+    # K1 at the zoo path's shapes (ZOO_FA_CASES)
+    for arch, hq, hkv, d, win, cap, lens in ZOO_FA_CASES:
         for s in lens:
-            q = randn((1, s, hq, 256), torch.bfloat16)
-            k, v = randn((1, s, hkv, 256), torch.bfloat16), randn((1, s, hkv, 256), torch.bfloat16)
-            shape = f"B=1 S={s} Hq={hq} Hkv={hkv} hd=256 bf16 window={win} softcap={cap}"
+            q = randn((1, s, hq, d), torch.bfloat16)
+            k, v = randn((1, s, hkv, d), torch.bfloat16), randn((1, s, hkv, d), torch.bfloat16)
+            shape = f"B=1 S={s} Hq={hq} Hkv={hkv} hd={d} bf16 window={win} softcap={cap}"
             e = check("flash_attention", flash_attention(q, k, v, window=win, softcap=cap),
                       attention_ref(q, k, v, window=win, softcap=cap),
                       attention_ref(q.float(), k.float(), v.float(), window=win, softcap=cap),
@@ -670,7 +696,7 @@ def phase_kernels(torch, dev):
             # tensor-map encodes, or SDPA's dispatch)
             dev_ms, sdpa_dev = (cuda_ms(fn, flush=flush, spin=True) for fn in (fa, sdpa_fn))
             pairs = sum(min(i + 1, win or s) for i in range(s))   # visible (q, k) pairs
-            ops = 4.0 * hq * 256 * pairs
+            ops = 4.0 * hq * d * pairs
             b_ms, b_by = bound(nbytes(q, k, v, q), ops, BF16_FLOPS)
             print(f"[kernels] flash_attention {arch} path {shape}: err {e:.3g} kernel "
                   f"{ms:.4f} ms (spun {dev_ms:.4f}), plain {plain:.4f} ms, "
@@ -693,13 +719,16 @@ def phase_kernels(torch, dev):
     rows.update(check_decode(torch, dev, randn, err, flush))
     rows.update(check_decode(torch, dev, randn, err, flush, hq=32, hkv=2, fills=GLM4_FILLS,
                              label="glm4-9b"))
+    for arch, hq, hkv, d, win, cap in ZOO_DEC_CASES:
+        rows.update(check_decode(torch, dev, randn, err, flush, hq=hq, hkv=hkv, fills=(),
+                                 label=arch, d=d, window=win, softcap=cap))
     rows.update(check_ssd(torch, dev, gen, randn, err, flush))
     rows.update(check_quant(torch, randn, flush))
     del flush
     return rows
 
 
-def one_split_decode(q, k_cache, v_cache, cache_len):
+def one_split_decode(q, k_cache, v_cache, cache_len, window=None, softcap=None):
     """K2 in its one-split schedule: the same kernel with split_rows = S,
     so a block per (b, kv head), the grid it had before its split, behind
     the wrapper's checks, through the C entry. Timed beside
@@ -707,15 +736,18 @@ def one_split_decode(q, k_cache, v_cache, cache_len):
     from repro_torch.kernels import refuse_grad
     from repro_torch.kernels.decode_attention.ops import _check, _row_lengths, launch
 
-    _check(q, k_cache, v_cache, None, None)
+    _check(q, k_cache, v_cache, window, softcap)
     refuse_grad("decode_attention", q, k_cache, v_cache)
     clen = _row_lengths(cache_len, q.shape[0], q.device)
-    return launch(q, k_cache, v_cache, clen, k_cache.shape[1], None, None)
+    return launch(q, k_cache, v_cache, clen, k_cache.shape[1], window, softcap)
 
 
-def check_decode(torch, dev, randn, err, flush, hq=16, hkv=8, fills=DEC_FILLS, label=""):
+def check_decode(torch, dev, randn, err, flush, hq=16, hkv=8, fills=DEC_FILLS, label="",
+                 d=128, window=None, softcap=None):
     """K2 at a decode shape of the serve path (4 slots, max_len 1024, hd
-    128; internlm2-1.8b's 16 q / 8 kv heads, or ``label``'s), at the serve
+    ``d``; internlm2-1.8b's 16 q / 8 kv heads, or ``label``'s, with its
+    window and softcap: SDPA, without a softcap, is then timed as the
+    yardstick only and ``library_ms`` is None), at the serve
     path's lengths (DEC_PATH_LENS) and at each uniform fill of ``fills``:
     against the plain version, and timed beside its one-split schedule
     (``one_split_decode``), the plain version and SDPA: ``ms`` as for every
@@ -728,7 +760,7 @@ def check_decode(torch, dev, randn, err, flush, hq=16, hkv=8, fills=DEC_FILLS, l
     from repro_torch.kernels.decode_attention.ops import decode_attention_kernel, split_rows
     from repro_torch.kernels.decode_attention.ref import decode_attention
 
-    b, s, d = 4, 1024, 128
+    b, s = 4, 1024
     rows_per_split = split_rows(b, s, hkv, d)
     q = randn((b, 1, hq, d), torch.bfloat16)
     kc, vc = randn((b, s, hkv, d), torch.float32), randn((b, s, hkv, d), torch.float32)
@@ -738,14 +770,15 @@ def check_decode(torch, dev, randn, err, flush, hq=16, hkv=8, fills=DEC_FILLS, l
     for key, lens in [(f"{label} path".strip(), DEC_PATH_LENS)] + [
             (f"{label} fill {n}" if label else n, (n,) * b) for n in fills]:
         lens = torch.tensor(lens, dtype=torch.int32, device=dev)
-        ref = decode_attention(q, kc, vc, lens)
-        e = err(decode_attention_kernel(q, kc, vc, lens), ref)
-        e_one = err(one_split_decode(q, kc, vc, lens), ref)
+        ref = decode_attention(q, kc, vc, lens, window=window, softcap=softcap)
+        e = err(decode_attention_kernel(q, kc, vc, lens, window=window, softcap=softcap), ref)
+        e_one = err(one_split_decode(q, kc, vc, lens, window, softcap), ref)
         if not max(e, e_one) < TOL["float32"]:
             raise AssertionError(f"decode_attention at lengths {lens.tolist()} disagrees: "
                                  f"split {e}, one split {e_one}")
-        new, old = (lambda: decode_attention_kernel(q, kc, vc, lens)), \
-            (lambda: one_split_decode(q, kc, vc, lens))
+        new, old = (lambda: decode_attention_kernel(q, kc, vc, lens, window=window,
+                                                    softcap=softcap)), \
+            (lambda: one_split_decode(q, kc, vc, lens, window, softcap))
         # both schedules in turns, seven rounds of 30 launches, each time
         # the median over the rounds: a stall of the shared host shifts a
         # whole round, and the two differ by a few tenths of a us at low fills
@@ -756,8 +789,11 @@ def check_decode(torch, dev, randn, err, flush, hq=16, hkv=8, fills=DEC_FILLS, l
                 times[i].append(cuda_ms((new, old)[i % 2], iters=30, flush=flush,
                                         spin=i >= 2))
         ms, one, dev_ms, one_dev = (float(np.median(t)) for t in times)
-        plain = cuda_ms(lambda: decode_attention(q, kc, vc, lens), flush=flush)
-        mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        plain = cuda_ms(lambda: decode_attention(q, kc, vc, lens, window=window,
+                                                 softcap=softcap), flush=flush)
+        pos = torch.arange(s, device=dev)[None, :]
+        mask = (pos < lens[:, None]) & (pos >= lens[:, None] - (window or s))
+        mask = mask[:, None, None, :]
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(qf, ke, ve, attn_mask=mask),
                       flush=flush)
         host, one_host = host_us_per_call([new, old])
@@ -765,24 +801,28 @@ def check_decode(torch, dev, randn, err, flush, hq=16, hkv=8, fills=DEC_FILLS, l
         if len(passes) != 1:
             raise AssertionError(f"decode_attention launched {sorted(passes)}, not one kernel")
         (kname, launch_us), = passes.items()
-        rows_read = int(lens.sum().item())             # cache rows this run needs
+        rows_read = int(lens.clamp(max=window or s).sum().item())   # rows this run needs
         kv_bytes = 2 * rows_read * hkv * d * 4
         ops = 4.0 * rows_read * hq * d
         b_ms, b_by = bound(nbytes(q, lens) + kv_bytes + b * hq * d * 4, ops, F32_FLOPS)
+        heads = f" Hq={hq} Hkv={hkv} hd={d} window={window} softcap={softcap}" if label else ""
         print(f"[kernels] decode_attention {key if isinstance(key, str) else 'fill'} B={b} "
-              f"max_len={s} lens={lens.tolist()}{f' Hq={hq} Hkv={hkv}' if label else ''} "
+              f"max_len={s} lens={lens.tolist()}{heads} "
               f"f32 cache: err {e:.3g} (one split "
               f"{e_one:.3g}) kernel {ms:.4f} ms ({dev_ms:.4f} spun; split_rows "
               f"{rows_per_split}; one launch, {kname} {launch_us} us), one split {one:.4f} ms ({one_dev:.4f} "
-              f"spun), host {host:.2f} against {one_host:.2f} us a call, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
+              f"spun), host {host:.2f} against {one_host:.2f} us a call, plain {plain:.4f} ms, "
+              f"sdpa{' without the softcap' if softcap else ''} {lib:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by}; {kv_bytes / 1e6:.2f} MB of cache rows)")
         rows[("decode_attention", key)] = dict(
-            max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+            max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None if softcap else lib,
+            **({"sdpa_without_softcap_ms": lib} if softcap else {}),
             device_ms=dev_ms, split_rows=rows_per_split, one_split_ms=one,
             one_split_device_ms=one_dev, host_us=host, one_split_host_us=one_host,
             launch_us=launch_us, kernel=kname,
             shape=f"B={b} max_len={s} lens={lens.tolist()} Hq={hq} Hkv={hkv} hd={d} "
-                  "f32 cache, bf16 q")
+                  f"window={window} softcap={softcap} f32 cache, bf16 q")
     return rows
 
 
@@ -1542,6 +1582,7 @@ def phase_train(torch, dev):
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.train import build
+    from repro_torch.models.params import param_count_tree
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train.cluster import ClusterTimeModel
     from repro_torch.train.trainer import Trainer
@@ -1563,6 +1604,13 @@ def phase_train(torch, dev):
             fn.launches = 0
         t0 = time.perf_counter()
         params, opt, step_fn = build(cfg, run, dev)
+        counted = param_count_tree(params)
+        if moments == "int8":
+            print(f"[train] {cfg.name}: param_count_tree {counted:,} values on the card, "
+                  f"cfg.param_count() {cfg.param_count():,}")
+        if counted != cfg.param_count():
+            raise AssertionError(f"param_count_tree {counted} != cfg.param_count() "
+                                 f"{cfg.param_count()}")
         # the int8 run also advances simulated time: one node of one H100
         # (core/hw.py's constants) on train_fabric(1)
         tm = (ClusterTimeModel.from_config(cfg, shape, nodes=1, devices_per_node=1)
@@ -1572,7 +1620,11 @@ def phase_train(torch, dev):
         del params, opt
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
-        tr.run_steps(steps)
+        tr.run_steps(steps - 1)
+        # the params before the last step, in host memory (the card's peak
+        # stays the run's own), for the int8 run's |dp| (int8_moment_hazard)
+        before = [p.cpu() for p in tree_leaves(tr.params)] if moments == "int8" else None
+        tr.run_steps(1)
         torch.cuda.synchronize()
         launches[moments] = {name: fn.launches for name, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated(dev)
@@ -1608,6 +1660,8 @@ def phase_train(torch, dev):
                                  f"v of each leaf quantized at init and every step, "
                                  f"dequantized every step, no attention or SSD kernel")
         if moments == "int8":
+            int8_moment_hazard(torch, tr, before, hist[-1])
+            del before
             profile_train(torch, tr)
         del tr, step_fn
         gc.collect()
@@ -1621,6 +1675,25 @@ def phase_train(torch, dev):
     if not max(rel) < LOSS_REL_TOL:
         raise AssertionError(f"int8 moments part from f32 moments: rel {rel}")
     return launches["int8"]
+
+
+def int8_moment_hazard(torch, tr, before, last):
+    """After the int8 run's last step: the moment values whose v rounds to
+    int8 0 under a nonzero m (the update divides m by eps there; JAX's
+    int8 update does the same, ``tests/test_torch_quant.py::
+    test_int8_moments_zero_v_matches_jax``), out of all of them, and the
+    step's largest |dp| / lr. Printed without a limit."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    hazard = total = 0
+    for m, v in zip(tree_leaves(tr.opt_state.m), tree_leaves(tr.opt_state.v)):
+        hazard += int(((v.q == 0) & (m.q != 0)).sum().item())
+        total += m.q.numel()
+    dp = max((p - b.to(p.device)).abs().max().item()
+             for p, b in zip(tree_leaves(tr.params), before))
+    print(f"[train] int8 moments after step {last['step']}: {hazard:,} of {total:,} moment "
+          f"values ({100 * hazard / total:.4f}%) with v's int8 0 under a nonzero m; largest "
+          f"|dp| {dp:.6g} = {dp / last['lr']:.6g} x lr (lr {last['lr']:.6g})")
 
 
 def phase_train_cluster(torch, dev, spec=TRAIN_CLUSTER):
@@ -2062,7 +2135,8 @@ def phase_zoo(torch, dev):
     capacity); gemma2-9b's long prompt (``zoo_long_prompt``) disagrees.
     Prints each arch's tokens/s, prefill ms per bucket, decode ms, peak
     device memory, seconds, and each MoE's dropped fraction and expert
-    load. Returns the launch counts summed over the timed passes."""
+    load. Returns the launch counts summed over the timed passes, and
+    each arch's."""
     from repro_torch.configs import get_config
     from repro_torch.models.params import init_params, layer_period, num_groups, slot_kind
     from repro_torch.serve.engine import Request, ServeEngine
@@ -2072,7 +2146,7 @@ def phase_zoo(torch, dev):
 
     spec = ZOO_SERVE
     counters = launch_counters()
-    total = dict.fromkeys(counters, 0)
+    total, by_arch = dict.fromkeys(counters, 0), {}
     for arch, layers in ZOO:
         t0 = time.perf_counter()
         cfg = get_config(arch)
@@ -2181,13 +2255,14 @@ def phase_zoo(torch, dev):
             zoo_long_prompt(torch, dev, cfg, eng.params)
         for k in total:
             total[k] += launches[k]
+        by_arch[arch] = launches
         del eng
         gc.collect()
         torch.cuda.empty_cache()
         print(f"[zoo] {arch}: peak memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} "
               f"GiB; {time.perf_counter() - t0:.1f} s")
     print(f"[zoo] launches over the timed passes: {total}")
-    return total
+    return total, by_arch
 
 
 def profile_train(torch, tr):
@@ -3029,7 +3104,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 8. zoo: every other arch one card holds, served through K1 and K2
-    launches_zoo = phase_zoo(torch, dev)
+    launches_zoo, zoo_by_arch = phase_zoo(torch, dev)
     lap("zoo")
     gc.collect()
     torch.cuda.empty_cache()
@@ -3065,8 +3140,9 @@ def main() -> int:
              zoo_launches=launches_zoo["flash_attention"],
              dist_launches=launches_dist["flash_attention"],
              dryrun_launches=launches_dryrun["flash_attention"],
+             arch=arch, arch_zoo_launches=zoo_by_arch[arch]["flash_attention"],
              **rows[("flash_attention", arch, s)])
-        for arch, _, _, _, _, lens in ZOO_FA_CASES for s in lens
+        for arch, *_, lens in ZOO_FA_CASES for s in lens
     ] + [
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -3077,9 +3153,12 @@ def main() -> int:
              zoo_launches=launches_zoo["decode_attention"],
              dist_launches=launches_dist["decode_attention"],
              dryrun_launches=launches_dryrun["decode_attention"],
+             **({} if arch is None else
+                dict(arch=arch, arch_zoo_launches=zoo_by_arch[arch]["decode_attention"])),
              **rows[("decode_attention", key)])
-        for key in ("path", "glm4-9b path") + DEC_FILLS + tuple(
-            f"glm4-9b fill {n}" for n in GLM4_FILLS)
+        for key, arch in [("path", None)] + [(n, None) for n in DEC_FILLS] + [
+            (f"{a} path", a) for a in ["glm4-9b", *(c[0] for c in ZOO_DEC_CASES)]] + [
+            (f"glm4-9b fill {n}", "glm4-9b") for n in GLM4_FILLS]
     ] + [
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",

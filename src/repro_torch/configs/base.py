@@ -1,11 +1,8 @@
-"""Model and shape configs, a copy of the JAX package's ``configs/base.py``.
+"""Config system: model / shape / mesh / run configs, a copy of the JAX
+package's ``configs/base.py`` (the port never imports the JAX package).
 
-The port keeps its own copy so that it never imports the JAX package.
-Every architecture the port runs gets one module in this package
-exporting ``CONFIG: ModelConfig``; ``repro_torch.configs.registry``
-resolves ``--arch``. ``RunConfig`` is copied for the training slice;
-mesh configs stay in the JAX package until a slice of the port needs
-them.
+Every assigned architecture gets one module in this package exporting
+``CONFIG: ModelConfig``. ``repro_torch.configs.registry`` resolves ``--arch``.
 """
 from __future__ import annotations
 
@@ -211,6 +208,36 @@ SHAPES = {
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
 
+#: archs allowed to run long_500k (sub-quadratic sequence mixing)
+SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Is this (arch, shape) cell runnable? Returns (ok, reason)."""
+    if shape.name == "long_500k" and cfg.family not in SUBQUADRATIC_FAMILIES:
+        return False, "long_500k requires sub-quadratic mixing (SSM/hybrid); " \
+                      f"{cfg.name} is pure full-attention"
+    return True, ""
+
+
+# ----------------------------------------------------------------------
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
+
+
 @dataclass(frozen=True)
 class RunConfig:
     """Trainer/serving hyper-parameters independent of architecture."""
@@ -234,15 +261,3 @@ class RunConfig:
     ckpt_replicas: int = 0           # chain-replication targets (LineFS)
     ckpt_compress: bool = True
     seed: int = 0
-
-
-#: archs allowed to run long_500k (sub-quadratic sequence mixing)
-SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
-
-
-def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
-    """Is this (arch, shape) cell runnable? Returns (ok, reason)."""
-    if shape.name == "long_500k" and cfg.family not in SUBQUADRATIC_FAMILIES:
-        return False, "long_500k requires sub-quadratic mixing (SSM/hybrid); " \
-                      f"{cfg.name} is pure full-attention"
-    return True, ""

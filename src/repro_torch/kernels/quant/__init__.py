@@ -1,1 +1,2 @@
-from repro_torch.kernels.quant.ops import dequantize, quantize  # noqa: F401
+from repro_torch.kernels.quant.ops import (dequantize, dequantize_int8,  # noqa: F401
+                                           quantize, quantize_int8)

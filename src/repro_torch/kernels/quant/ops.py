@@ -12,6 +12,10 @@ block.
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version (``ref.py``: ``quantize_flat_ref``, ``dequantize_flat_ref``). ``quantize.launches`` and ``dequantize.launches``
 count the launches of the kernels.
+
+``quantize_int8`` and ``dequantize_int8`` are the JAX package's names and
+signatures (``repro/kernels/quant/ops.py``), with its scale of shape
+(nblk, 1); they call ``quantize`` and ``dequantize``.
 """
 from __future__ import annotations
 
@@ -100,6 +104,23 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor, shape: Sequence[int],
     _build.check(err, "dequantize launch")
     dequantize.launches += 1
     return out
+
+
+def quantize_int8(x: torch.Tensor, block: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Any-shape x -> (q (nblk, block) int8, scale (nblk, 1) f32): x read
+    as f32 (bf16 as it is: widening is exact), as the JAX function casts."""
+    q, scale = quantize(x if x.dtype in DTYPES else x.float(), block)
+    return q, scale[:, None]
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, shape: Sequence[int],
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """q (nblk, block) int8, scale (nblk, 1) f32 -> the first prod(shape)
+    values of ``q * scale`` as ``shape`` in ``dtype``."""
+    if scale.shape != (q.shape[0], 1):
+        raise ValueError(f"dequantize_int8: want scale (nblk, 1) for q "
+                         f"{tuple(q.shape)}, got {tuple(scale.shape)}")
+    return dequantize(q, scale[:, 0], shape, dtype)
 
 
 quantize.launches = 0

@@ -200,6 +200,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+def param_count_tree(params: PyTree) -> int:
+    """The number of values in a tree of tensors (dicts, tuples and lists
+    of them), as the JAX function sums ``x.size`` over its leaves."""
+    if isinstance(params, dict):
+        return sum(param_count_tree(v) for v in params.values())
+    if isinstance(params, (tuple, list)):
+        return sum(param_count_tree(v) for v in params)
+    return params.numel()
+
+
 #: leaves that ``compute_copy`` keeps in f32
 F32_LEAVES = ("scale", "table", "A_log", "D", "dt_bias", "norm", "router")
 

@@ -229,6 +229,13 @@ def current_mesh() -> Optional[Mesh]:
     return _MESH[-1] if _MESH else None
 
 
+def get_abstract_mesh() -> Optional[Mesh]:
+    """JAX's name for the ambient mesh: ``current_mesh()``, or None for a
+    mesh of no axes."""
+    mesh = current_mesh()
+    return mesh if mesh is not None and mesh.shape else None
+
+
 # ----------------------------------------------------------------------
 # specs as DTensor placements
 # ----------------------------------------------------------------------

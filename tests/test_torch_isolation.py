@@ -105,7 +105,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch, tmp_
 #: tracer's and arrivals')
 COPIES = ["obs/metrics.py", "offload/device.py", "offload/program.py",
           "offload/compression.py", "ckpt/replication.py", "ft/manager.py",
-          "ft/straggler.py", "train/pods.py"] + [
+          "ft/straggler.py", "train/pods.py", "configs/base.py"] + [
     f"configs/{name}.py" for name in (
         "internlm2_1_8b", "mamba2_2_7b", "glm4_9b", "gemma_7b", "gemma2_9b", "internvl2_2b",
         "musicgen_large", "granite_moe_1b", "moonshot_16b_a3b", "jamba_1_5_large")]

@@ -10,7 +10,11 @@ division, round half to even, an exact max). The Pallas kernel runs
 jitted, and XLA turns its division by the constant 127 into a multiply
 by the reciprocal, so its scales may sit one f32 ulp off; they are held
 to the JAX package's own rel 1e-6 (``tests/test_kernels.py:86-87``),
-its q and dequantized values to 0 in these cases."""
+its q and dequantized values to 0 in these cases.
+
+Then AdamW with int8 moments where v's block rounds an element to 0
+under a nonzero m: the port's update bit-equal to JAX's through the step
+that divides m by eps."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,8 +24,10 @@ from hypothesis import example, given, settings, strategies as st
 from repro.core import compression as jc
 from repro.kernels.quant.ops import dequantize_int8 as jax_dequant_pallas
 from repro.kernels.quant.ops import quantize_int8 as jax_quant_pallas
+from repro.optim import adamw as ja
 from repro_torch.core import compression as tc
 from repro_torch.kernels.quant.ops import dequantize, quantize
+from repro_torch.optim import adamw as ta
 
 # tests/test_kernels.py::test_quant_kernel_vs_ref's (n, block) cases
 QUANT_CASES = [(1000, 128), (4096, 256), (17, 16)]
@@ -155,3 +161,41 @@ def test_error_feedback_init_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tc.ErrorFeedback.init((4,))
+
+
+def test_int8_moments_zero_v_matches_jax():
+    """Int8 AdamW moments where v's block quantizes to 0 under a nonzero
+    m: one leaf (1, 256), params 0.02 N(0, 1), step 1's grad 1 at element
+    0 and 1e-2 N(0, 1) elsewhere (numpy seed 0), step 2's grad element 0
+    alone; lr 1e-3, no clipping, no decay. v's block scale is set by
+    element 0 (254x the others' v and more), so their v rounds to 0 while
+    their m does not, and step 2 divides m by eps. The port's whole-leaf
+    ``adamw_update`` and JAX's are bit-equal after each step, params and
+    both moments' q and scale: the blow-up is the reference's own
+    arithmetic (``repro/optim/adamw.py:86`` on
+    ``repro/core/compression.py:76-77``)."""
+    rng = np.random.default_rng(0)
+    p0 = (0.02 * rng.standard_normal((1, 256))).astype(np.float32)
+    g1 = (1e-2 * rng.standard_normal((1, 256))).astype(np.float32)
+    g1[0, 0] = 1.0
+    g2 = np.zeros((1, 256), np.float32)
+    g2[0, 0] = 1.0
+    kw = dict(lr=1e-3, grad_clip=0.0, weight_decay=0.0, moments="int8")
+    jp, tp = {"w": jnp.asarray(p0)}, {"w": torch.from_numpy(p0.copy())}
+    js, ts = ja.adamw_init(jp, moments="int8"), ta.adamw_init(tp, moments="int8")
+    before = p0
+    for step, g in enumerate((g1, g2), 1):
+        jp, js, _ = ja.adamw_update({"w": jnp.asarray(g)}, js, jp, **kw)
+        tp, ts, _ = ta.adamw_update({"w": torch.from_numpy(g.copy())}, ts, tp, **kw)
+        _check_equal(f"int8 moments step {step} params", jp["w"], tp["w"])
+        for name in ("m", "v"):
+            _check_equal(f"int8 moments step {step} {name}.q", getattr(js, name)["w"].q,
+                         getattr(ts, name)["w"].q)
+            _check_equal(f"int8 moments step {step} {name}.scale",
+                         getattr(js, name)["w"].scale, getattr(ts, name)["w"].scale)
+        after = tp["w"].numpy().copy()
+        hazard = int(((ts.v["w"].q == 0) & (ts.m["w"].q != 0)).sum())
+        print(f"[parity] int8 moments step {step}: max|dp| {np.abs(after - before).max():.6g}, "
+              f"{hazard} of 256 values with v's int8 0 under a nonzero m")
+        before = after
+    assert np.abs(after - p0).max() > 1.0          # the blow-up is there, in both
