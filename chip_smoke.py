@@ -77,7 +77,6 @@ nothing of JAX. Phases, each fatal on failure:
              at the shortest prompt past request 0's the plain path on
              the card is read against the plain path on the CPU (the
              model's bf16 noise floor, held to no limit);
-             ``torch.profiler`` breaks down a step;
    staged  - right after internlm2's serve phase, from its bf16 weights and
              the same eight prompts (16 greedy tokens each, 4 slots, 1024
              rows, f32 cache), on the §5.2 KV fabric (``kv_fabric()``):
@@ -108,7 +107,7 @@ nothing of JAX. Phases, each fatal on failure:
              ``cfg.param_count()``; after the int8 run's last step, the
              moment values whose v is int8 0 under a nonzero m and the
              step's largest |dp| / lr are printed (no limit: JAX's
-             arithmetic); ``torch.profiler`` breaks down a fourth int8 step. The int8
+             arithmetic). The int8
              run also advances simulated time (``ClusterTimeModel`` of one
              node of one H100, ``core/hw.py``): each step's line adds its
              simulated seconds and tok/s, labelled as the fabric model's;
@@ -226,8 +225,7 @@ nothing of JAX. Phases, each fatal on failure:
              measured (less what was allocated before it); the same cell
              cut to 2 layers, traced, counts exactly the FLOPs that
              ``FlopCounterMode`` counts around one real step of it on the
-             card; the predicted compute time is printed beside the
-             profiled train step's device time, with no limit.
+             card.
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound (K1 and K3 once per timed length, K2 at the path's
@@ -1205,7 +1203,6 @@ def phase_serve(torch, dev, arch, path_kernels):
     sync = dict(params=eng.params, prompts=prompts,
                 tokens=[list(r.out_tokens) for r in reqs], wall=wall, tok_s=toks / wall,
                 decode_ms=float(np.median(d)))
-    profile_serve(torch, eng, cfg, rng)
     return launches, sync
 
 
@@ -1375,51 +1372,6 @@ def bf16_floor(torch, dev, cfg, params, prompt):
           f"plain on the CPU: rel err {rel(card['ref'], cpu):.3g}; kernels vs plain on the "
           f"card {rel(card['auto'], card['ref']):.3g} (the model's bf16 noise floor; no "
           f"limit; the CPU pass {time.perf_counter() - t0:.1f} s)")
-
-
-def profile_serve(torch, eng, cfg, rng):
-    """Where a serve step's time goes: one step that admits four prompts
-    (four prefills and a decode), then decode-only steps, each under
-    ``torch.profiler``. Prints host wall time, the device's busy time
-    (the sum of its kernels' and copies' time on the one stream), the
-    largest device items and the largest host ops."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serve.engine import Request
-
-    for i in range(4):
-        eng.submit(Request(rid=100 + i, prompt=rng.integers(0, cfg.vocab_size, 300)
-                           .astype(np.int32), max_new_tokens=8))
-    for label, steps in (("admit 4 x 300-token prompts + decode", 1), ("decode", 4)):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                eng.step()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / steps
-        # device rows only: a CPU op's self device time repeats its kernels'
-        events = prof.key_averages()
-        rows = [(e.self_device_time_total / 1e3 / steps, e.count // steps, e.key)
-                for e in events if e.device_type != DeviceType.CPU]
-        busy = sum(r[0] for r in rows)
-        all_rows = sorted((r for r in rows if r[0] > 0), reverse=True)
-        rows = all_rows[:8]
-        share = (f"{busy:.3f} ms, idle {100 * (1 - busy / wall):.1f}%" if busy > 0
-                 else "not measured (the profiler recorded no device time)")
-        print(f"[profile] {cfg.name} {label}: host wall {wall:.3f} ms per step, "
-              f"device busy {share}")
-        for ms, n, key in rows:
-            print(f"[profile]   device {ms:8.3f} ms  {n:5d}x  {key[:90]}")
-        ours = [(re.search(r"repro::\(anonymous namespace\)::(\w+)", key), ms, n)
-                for ms, n, key in all_rows]
-        print("[profile]   the port's kernels: " + (", ".join(
-            f"{name.group(1)} {ms:.3f} ms ({n}x)" for name, ms, n in ours if name) or "none"))
-        host = sorted(((e.self_cpu_time_total / 1e3 / steps, e.count // steps, e.key)
-                       for e in events if e.device_type == DeviceType.CPU), reverse=True)[:8]
-        for ms, n, key in host:
-            print(f"[profile]   host   {ms:8.3f} ms  {n:5d}x  {key[:90]}")
-    eng.run()
 
 
 def _timeline(reqs):
@@ -1662,7 +1614,6 @@ def phase_train(torch, dev):
         if moments == "int8":
             int8_moment_hazard(torch, tr, before, hist[-1])
             del before
-            profile_train(torch, tr)
         del tr, step_fn
         gc.collect()
         torch.cuda.empty_cache()
@@ -2263,40 +2214,6 @@ def phase_zoo(torch, dev):
               f"GiB; {time.perf_counter() - t0:.1f} s")
     print(f"[zoo] launches over the timed passes: {total}")
     return total, by_arch
-
-
-def profile_train(torch, tr):
-    """Where a train step's time goes: one more step under
-    ``torch.profiler``; host wall, device busy, the largest device items,
-    and the share of the int8 moment kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.run_steps(1)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in events if e.device_type != DeviceType.CPU]
-    busy = sum(r[0] for r in rows)
-    quant = sum(r[0] for r in rows if "quantize_kernel" in r[2])
-    share = (f"{busy:.3f} ms, idle {100 * (1 - busy / wall):.1f}%; quantize + dequantize "
-             f"kernels {quant:.3f} ms ({100 * quant / busy:.2f}% of device time)"
-             if busy > 0 else "not measured (the profiler recorded no device time)")
-    print(f"[profile] train step {tr.history[-1]['step']}: host wall {wall:.1f} ms, "
-          f"device busy {share}")
-    MEASURED["train_device_ms"] = busy if busy > 0 else None
-    for ms, n, key in sorted((r for r in rows if r[0] > 0), reverse=True)[:12]:
-        print(f"[profile]   device {ms:9.3f} ms  {n:6d}x  {key[:90]}")
-    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key) for e in events
-                   if e.device_type == DeviceType.CPU), reverse=True)[:10]
-    for ms, n, key in host:
-        print(f"[profile]   host   {ms:9.3f} ms  {n:6d}x  {key[:90]}")
-    print(f"[profile]   host   {sum(e.count for e in events if e.device_type == DeviceType.CPU)} "
-          f"host ops in all, {sum(r[1] for r in rows)} device items")
 
 
 def _dist_rank(rank: int, world: int, root: str, card: str) -> dict:
@@ -2903,9 +2820,8 @@ def phase_dryrun(torch, dev, jobs):
     lines; then hold the dry-run to the card: the train phase's cell's
     predicted peak against the int8 run's measured peak
     (``DRYRUN["peak_tol"]``), the 2-layer cut's traced FLOPs against
-    ``FlopCounterMode`` around one real step of it, and the predicted
-    compute time beside the profiled step's device time. Returns the
-    real step's launch counts."""
+    ``FlopCounterMode`` around one real step of it. Returns the real
+    step's launch counts."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs import RunConfig, get_config
@@ -2976,10 +2892,6 @@ def phase_dryrun(torch, dev, jobs):
     gc.collect()
     torch.cuda.empty_cache()
 
-    device_ms = MEASURED.get("train_device_ms")
-    print(f"[dryrun] compute: predicted {result['whole']['compute_s'] * 1e3:.3f} ms a step "
-          f"(FLOPs / 989 TFLOP/s, core/hw.py), the profiled int8 train step's device time "
-          f"{'%.3f ms' % device_ms if device_ms else 'not measured'} (no limit)")
     return launches
 
 

@@ -25,7 +25,10 @@ burst.
 burst modulated) with heavy-tailed prompt/decode lengths. It needs
 ``--staged``; ``--requests``, ``--prompt-len``, ``--max-new`` and
 ``--arrival-spacing`` are ignored then. ``--trace-json OUT.json`` writes
-the staged run's span timeline as Chrome-trace JSON.
+a span timeline as Chrome-trace JSON (``obs.export.dump``): the staged
+run's simulated spans, or the synchronous engine's phases on the host's
+wall clock (``serve.step``, ``serve.prefill``, ``serve.decode``, ... and
+one ``serve.request`` per request; ``serve/engine.py``).
 """
 from __future__ import annotations
 
@@ -73,14 +76,13 @@ def main(argv=None):
     ap.add_argument("--trace-seed", type=int, default=0,
                     help="arrival-generator seed (deterministic replay)")
     ap.add_argument("--trace-json", default="", metavar="OUT.json",
-                    help="write the staged run's span timeline as "
-                         "Chrome-trace JSON (requires --staged; distinct "
-                         "from --trace, which replays an arrival trace)")
+                    help="write the span timeline as Chrome-trace JSON: "
+                         "the staged run's simulated spans, or the sync "
+                         "engine's host-clock phases (distinct from "
+                         "--trace, which replays an arrival trace)")
     args = ap.parse_args(argv)
     if args.trace and not args.staged:
         ap.error("--trace requires --staged")
-    if args.trace_json and not args.staged:
-        ap.error("--trace-json requires --staged")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -101,8 +103,12 @@ def main(argv=None):
                                 device=device)
     else:
         fabric = kv_fabric() if args.kv_fabric else None
+        host_tracer = None
+        if args.trace_json:
+            from repro_torch.obs.host import HostTracer
+            host_tracer = HostTracer()
         eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
-                          fabric=fabric, device=device)
+                          fabric=fabric, device=device, host_tracer=host_tracer)
         if eng.placement is not None:
             p = eng.placement
             print(f"[serve] decode cache placement: {p.location} "
@@ -170,11 +176,11 @@ def main(argv=None):
         print(f"[serve] simulated TTFT p50={p50 * 1e3:.3f}ms "
               f"p99={p99 * 1e3:.3f}ms makespan="
               f"{eng.clock.now * 1e3:.3f}ms placements={eng.placements}")
-        if args.trace_json:
-            from repro_torch.obs.export import dump
-            dump(eng.runtime.tracer, args.trace_json)
-            print(f"[trace] {len(eng.runtime.tracer.spans)} spans -> "
-                  f"{args.trace_json}")
+    if args.trace_json:
+        from repro_torch.obs.export import dump
+        tracer = eng.runtime.tracer if args.staged else eng.host_tracer
+        dump(tracer, args.trace_json)
+        print(f"[trace] {len(tracer.spans)} spans -> {args.trace_json}")
     for r in reqs[:4]:
         print(f"  req{r.rid}: {r.out_tokens[:10]}{'...' if len(r.out_tokens) > 10 else ''}")
     if not all(r.done for r in reqs):

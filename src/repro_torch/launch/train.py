@@ -16,7 +16,11 @@ Three modes:
   otherwise. ``--ckpt-dir`` checkpoints every ``--ckpt-every`` steps
   (``--ckpt-replicas`` chain replicas) and resumes from the newest
   checkpoint there; ``--log`` appends each step's record as JSON. Prints
-  a ``[train]`` line per step and a final line.
+  a ``[train]`` line per step and a final line. ``--trace OUT.json``
+  writes the steps' phases on the host's wall clock (``train.step``,
+  ``train.forward``, ``train.backward``, ``train.accumulate``,
+  ``train.optimizer``; ``train/train_step.py``) as Chrome-trace JSON
+  (``obs.export.dump``).
 - multi-pod: ``--multi-pod`` trains as SPMD ranks, one process per
   mesh position, on a gloo group: ``--ranks N`` processes started by
   ``torch.multiprocessing`` (the rendezvous a file in a temporary
@@ -101,10 +105,11 @@ def place_state(cfg, run: RunConfig, params, mesh):
     return place(params, play, mesh), opt
 
 
-def build(cfg, run: RunConfig, device, mesh=None):
-    """Params from seed ``run.seed``, AdamW state and the train step. On
-    ``mesh``'s ranks each rank draws the same params and keeps only its
-    blocks of them and of the state (``place_state``)."""
+def build(cfg, run: RunConfig, device, mesh=None, host_tracer=None):
+    """Params from seed ``run.seed``, AdamW state and the train step
+    (recording its phases in ``host_tracer``, if given). On ``mesh``'s
+    ranks each rank draws the same params and keeps only its blocks of
+    them and of the state (``place_state``)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(run.seed)
     params = init_params(cfg, gen, device)
@@ -112,7 +117,7 @@ def build(cfg, run: RunConfig, device, mesh=None):
         opt = adamw_init(params, moments=_moments(run))
     else:
         params, opt = place_state(cfg, run, params, mesh)
-    return params, opt, make_train_step(cfg, run, mesh=mesh)
+    return params, opt, make_train_step(cfg, run, mesh=mesh, host_tracer=host_tracer)
 
 
 def train_loop(cfg, run, shape, args, device, mesh=None, lead: bool = True):
@@ -128,7 +133,11 @@ def train_loop(cfg, run, shape, args, device, mesh=None, lead: bool = True):
         f"{'int8' if run.moments_int8 else 'f32'}, remat {run.remat_policy}"
         + ("" if mesh is None else f", mesh {mesh.shape} pod_sync {run.pod_sync}"))
     quantize.launches = dequantize.launches = 0
-    params, opt, step_fn = build(cfg, run, device, mesh)
+    host_tracer = None
+    if mesh is None and args.trace:
+        from repro_torch.obs.host import HostTracer
+        host_tracer = HostTracer()
+    params, opt, step_fn = build(cfg, run, device, mesh, host_tracer)
     ckpt = None
     if args.ckpt_dir:
         # on a mesh every rank gathers the blocks of a save; rank 0 writes
@@ -155,6 +164,10 @@ def train_loop(cfg, run, shape, args, device, mesh=None, lead: bool = True):
     say(f"[train] done: step={last['step']} loss={last['loss']:.4f} "
         f"({last['seconds'] * 1e3:.0f} ms/step); kernel launches: "
         f"quantize={quantize.launches} dequantize={dequantize.launches}")
+    if host_tracer is not None:
+        from repro_torch.obs.export import dump
+        dump(host_tracer, args.trace)
+        say(f"[trace] {len(host_tracer.spans)} spans -> {args.trace}")
     return tr
 
 
@@ -343,9 +356,10 @@ def main(argv=None):
                          "parameter counts instead of splitting "
                          "uniformly (train/cluster.layer_group_weights)")
     ap.add_argument("--trace", default="", metavar="OUT.json",
-                    help="--simulate: write the run's span timeline as "
-                         "Chrome-trace JSON (load in chrome://tracing "
-                         "or ui.perfetto.dev)")
+                    help="write the run's span timeline as Chrome-trace "
+                         "JSON (load in chrome://tracing or ui.perfetto.dev): "
+                         "--simulate's simulated spans, or the local mode's "
+                         "host-clock phases of each step")
     ap.add_argument("--fabric", default="h100",
                     help="named fabric for --simulate "
                          "(h100 | weak-soc | fast-net | linefs)")
@@ -386,6 +400,9 @@ def main(argv=None):
                     microbatch=args.microbatch, pod_sync=args.pod_sync,
                     ckpt_every=args.ckpt_every, moments_int8=args.moments_int8)
     if args.multi_pod:
+        if args.trace:
+            ap.error("--trace writes --simulate's or the local mode's spans, "
+                     "not --multi-pod's")
         return multi_pod(cfg, run, shape, args)
     return train_loop(cfg, run, shape, args, device)
 

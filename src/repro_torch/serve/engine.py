@@ -48,6 +48,19 @@ in plain tensor ops. On the CPU every kernel takes its plain version.
 All device work of both engines is issued on the current stream, in
 program order: the in-place cache and position writes of a slot
 admitted while a decode step is in flight follow that step's reads.
+
+``ServeEngine(host_tracer=HostTracer())`` (``obs/host.py``) records the
+synchronous engine's real work on the host's wall clock, each phase in
+the profiler's timeline while one records: ``serve.request`` (submit to
+retirement; ``rid``, prompt and output tokens), ``serve.step`` (``active``
+rows, requests ``admitted``, ``host_syncs``: 2 for a greedy decode step,
+1 for each prefill), ``serve.admit``, ``serve.prefill`` (``rid``,
+``tokens``, ``bucket``) with ``serve.prefill.enqueue`` (the model and the
+sampling call) and ``serve.prefill.sync`` (the first token's host read),
+``serve.splice``, ``serve.decode`` with ``serve.decode.inputs`` and
+``serve.decode.enqueue``, and ``serve.finish`` with ``serve.finish.sync``
+(the step's token and position reads). Without one (the default) each
+site costs one test of ``None``; tracing changes no token.
 """
 from __future__ import annotations
 
@@ -127,7 +140,7 @@ class _EngineCore:
                  slots: int = 4, max_len: int = 256, impl: str = "auto",
                  cache_dtype: torch.dtype = torch.float32, seed: int = 0,
                  bucket_prefill: bool = True, compute: str = "torch",
-                 device=None):
+                 device=None, host_tracer=None):
         if compute not in ("torch", "sim"):
             raise ValueError(f"compute must be 'torch' or 'sim', got {compute!r}")
         self.compute = compute
@@ -143,6 +156,9 @@ class _EngineCore:
             "prefill_tokens": 0, "decode_steps": 0,
             "prefill_compilations": 0, "prefill_padded_tokens": 0}
         self._compiled_buckets: set = set()
+        self.host_tracer = host_tracer
+        self._request_spans: Dict[int, Any] = {}   # id(request) -> its open span
+        self._host_syncs = 0                       # this step's host reads, when traced
         if compute == "sim":
             self.cfg, self.params, self.device = cfg, params, None
             self.cache = None
@@ -170,6 +186,10 @@ class _EngineCore:
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
+        if self.host_tracer is not None:
+            self._request_spans[id(req)] = self.host_tracer.begin_phase(
+                "serve.request", tenant="requests", rid=req.rid,
+                prompt_tokens=len(req.prompt))
         self.queue.append(req)
 
     def _bucket_len(self, n: int) -> int:
@@ -188,25 +208,38 @@ class _EngineCore:
             req.out_tokens.append(self._sim_token(req.rid, 0))
             self.stats["prefill_tokens"] += n
             return None, n
+        ht = self.host_tracer
         prompt = np.asarray(req.prompt)                  # (S,) or (S, C)
         n = prompt.shape[0]
         bucket = self._bucket_len(n)
+        if ht is not None:
+            span = ht.open("serve.prefill", rid=req.rid, tokens=n, bucket=bucket)
         if bucket > n:
             pad = np.zeros((bucket - n,) + prompt.shape[1:], prompt.dtype)
             prompt = np.concatenate([prompt, pad])
         # a prefill "compilation" is a distinct bucket, as in the JAX engine
         self._compiled_buckets.add((bucket,) + prompt.shape[1:])
         toks = torch.as_tensor(prompt, device=self.device)[None]        # (1, S[,C])
+        if ht is not None:
+            part = ht.open("serve.prefill.enqueue")
         logits, cache1, npos = M.prefill(self.cfg, self.params, toks, self.max_len,
                                          impl=self.impl,
                                          cache_dtype=self.cache_dtype, length=n)
         tok = self._sample(logits[:, -1], req.temperature)
+        if ht is not None:
+            ht.close(part)
+            part = ht.open("serve.prefill.sync")
         # codebook 0 only, as the JAX engine keeps it (engine.py:184); the
         # first decode step feeds it to every codebook
         req.out_tokens.append(int(tok.reshape(-1)[0]))
+        if ht is not None:
+            ht.close(part)
+            self._host_syncs += 1
         self.stats["prefill_tokens"] += n
         self.stats["prefill_padded_tokens"] += bucket - n
         self.stats["prefill_compilations"] = len(self._compiled_buckets)
+        if ht is not None:
+            ht.close(span)
         return cache1, npos
 
     def _splice_cache(self, slot: int, row_cache):
@@ -223,7 +256,11 @@ class _EngineCore:
             self.pos[slot] = npos
             self.active[slot] = req
             return
+        if self.host_tracer is not None:
+            span = self.host_tracer.open("serve.splice")
         self._splice_cache(slot, cache1)
+        if self.host_tracer is not None:
+            self.host_tracer.close(span)
         self.pos[slot] = npos
         self.active[slot] = req
 
@@ -245,16 +282,27 @@ class _EngineCore:
                     self.pos[s] += 1
             self.stats["decode_steps"] += 1
             return None
+        ht = self.host_tracer
+        if ht is not None:
+            span = ht.open("serve.decode", active=len(act))
+            part = ht.open("serve.decode.inputs")
         cb = self.cfg.num_codebooks
         last = np.zeros((self.slots,) + ((cb,) if cb > 1 else ()), np.int64)
         for s in act:
             last[s] = self.active[s].out_tokens[-1]
         tokens = torch.as_tensor(last, device=self.device)[:, None]     # (B,1[,C])
+        if ht is not None:
+            ht.close(part)
+            part = ht.open("serve.decode.enqueue")
         logits, self.cache = M.decode_step(self.cfg, self.params, tokens,
                                            self.cache, self.pos, impl=self.impl)
+        if ht is not None:
+            ht.close(part)
         live = [1 if self.active[s] is not None else 0 for s in range(self.slots)]
         self.pos += torch.as_tensor(live, dtype=torch.int32, device=self.device)
         self.stats["decode_steps"] += 1
+        if ht is not None:
+            ht.close(span)
         return logits
 
     def _finish_decode(self, act: List[int], logits) -> List[Request]:
@@ -274,8 +322,15 @@ class _EngineCore:
                     self.finished.append(req)
                     retired.append(req)
             return retired
+        ht = self.host_tracer
+        if ht is not None:
+            span = ht.open("serve.finish")
+            part = ht.open("serve.finish.sync")
         nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()    # host sync; (B,[C])
         pos = self.pos.cpu().numpy()
+        if ht is not None:
+            ht.close(part)
+            self._host_syncs += 2 + sum(self.active[s].temperature > 0 for s in act)
         retired: List[Request] = []
         for s in act:
             req = self.active[s]
@@ -291,6 +346,11 @@ class _EngineCore:
                 self.active[s] = None
                 self.finished.append(req)
                 retired.append(req)
+                if ht is not None:
+                    ht.end_phase(self._request_spans.pop(id(req), None),
+                                 output_tokens=len(req.out_tokens))
+        if ht is not None:
+            ht.close(span)
         return retired
 
     def _free_slot(self) -> Optional[int]:
@@ -308,7 +368,8 @@ class ServeEngine(_EngineCore):
     step as *blocking* fabric transfers, putting this engine on the same
     simulated timeline as StagedServeEngine — with zero overlap, which
     is exactly the baseline the staged pipeline is measured against.
-    ``fabric`` plans the §5.2 decode-cache placement once, at init."""
+    ``fabric`` plans the §5.2 decode-cache placement once, at init.
+    ``host_tracer`` records the engine's phases (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
                  max_len: int = 256, impl: str = "auto",
@@ -318,10 +379,11 @@ class ServeEngine(_EngineCore):
                  runtime: Optional[FabricRuntime] = None,
                  time_model: Optional[ServeTimeModel] = None,
                  bucket_prefill: bool = True,
-                 tenant: Optional[str] = None, device=None):
+                 tenant: Optional[str] = None, device=None, host_tracer=None):
         super().__init__(cfg, params, slots=slots, max_len=max_len, impl=impl,
                          cache_dtype=cache_dtype, seed=seed,
-                         bucket_prefill=bucket_prefill, device=device)
+                         bucket_prefill=bucket_prefill, device=device,
+                         host_tracer=host_tracer)
         self.runtime, self.tm = runtime, time_model
         self.tenant = tenant
         if runtime is not None and time_model is None:
@@ -357,6 +419,8 @@ class ServeEngine(_EngineCore):
             self.runtime.clock.run(until=min(pending))
 
     def _admit(self):
+        if self.host_tracer is not None:
+            span = self.host_tracer.open("serve.admit")
         for s in range(self.slots):
             if self.active[s] is not None:
                 continue
@@ -375,11 +439,24 @@ class ServeEngine(_EngineCore):
             if req.first_token_time is not None:
                 self.ttft_log.append((req.first_token_time, req.ttft))
             self._activate(s, req, cache1, npos)
+        if self.host_tracer is not None:
+            self.host_tracer.close(span)
 
     # ------------------------------------------------------------------
     def step(self) -> int:
         """Admit + one decode step for all active slots. Returns the
         number of active requests."""
+        ht = self.host_tracer
+        if ht is None:
+            return self._step()
+        span = ht.open("serve.step")
+        queued, self._host_syncs = len(self.queue), 0
+        n = self._step()
+        ht.close(span, active=n, admitted=queued - len(self.queue),
+                 host_syncs=self._host_syncs)
+        return n
+
+    def _step(self) -> int:
         self._advance_to_next_arrival()
         self._admit()
         act = [s for s in range(self.slots) if self.active[s] is not None]

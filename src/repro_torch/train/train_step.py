@@ -45,6 +45,16 @@ forward + CE, backward, clip, AdamW.
   reports is the plain one).
 
 Grads come from ``torch.autograd.grad`` on the f32 master leaves.
+
+``host_tracer`` (an ``obs/host.HostTracer``) records the step's phases on
+the host's wall clock, each in the profiler's timeline while one
+records: ``train.step``; per microbatch ``train.forward`` (``loss_fn``;
+its ``microbatch`` index in the accumulation and its ``tokens``) and
+``train.backward`` (``torch.autograd.grad``); ``train.accumulate`` (each
+sum of two microbatches' grads, and the mean); ``train.optimizer``
+(``adamw_update``). The mesh path's collectives have no span of their
+own. Without a tracer (the default) each site costs one test of
+``None``; tracing changes no parameter.
 """
 from __future__ import annotations
 
@@ -151,7 +161,7 @@ def _mean_over(xs, mesh, axes, summed=None):
 
 def make_train_step(cfg: ModelConfig, run: RunConfig, *, impl: str = "auto",
                     mesh=None, capacity_factor: Optional[float] = 1.25,
-                    loss_chunk: int = 512):
+                    loss_chunk: int = 512, host_tracer=None):
     """Returns ``train_step(params, opt_state, batch, step,
     node_shares=None) -> (params, opt_state, metrics)``. ``params`` and
     f32 moments are updated in place (``optim/adamw.py``). ``node_shares``
@@ -160,50 +170,71 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, impl: str = "auto",
     each node's sub-batch and combine the sums into the same global
     mean. With ``mesh``, every rank calls it with the same global batch
     and its blocks of the train state, or the whole state (module
-    docstring). MoE layers dispatch at ``capacity_factor``."""
+    docstring). MoE layers dispatch at ``capacity_factor``; ``host_tracer``
+    records the step's phases (module docstring)."""
     moments = "int8" if run.moments_int8 else "f32"
     aux_w = cfg.router_aux_loss if cfg.num_experts else 0.0
     layout = None if mesh is None else train_layout(cfg, mesh, moments)
+    ht = host_tracer
 
-    def grads_of(params, batch, weigh=None):
+    def grads_of(params, batch, weigh=None, index=0):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         w = None if weigh is None else weigh(batch["loss_mask"])
         n_aux = aux_shards() if mesh is not None and aux_w else 1
         with torch.enable_grad():
+            if ht is not None:
+                tok = batch["tokens"]
+                span = ht.open("train.forward", microbatch=index,
+                               tokens=tok.shape[0] * tok.shape[1])
             loss, parts = loss_fn(cfg, tree_unflatten(params, leaves), batch,
                                   impl=impl, remat=run.remat_policy,
                                   capacity_factor=capacity_factor,
                                   loss_chunk=loss_chunk, ce_weight=w)
             obj = loss if n_aux == 1 else loss + (n_aux - 1) * aux_w * parts["aux"]
+            if ht is not None:
+                ht.close(span)
+                span = ht.open("train.backward", microbatch=index)
             grads = torch.autograd.grad(obj, leaves, allow_unused=True,
                                         materialize_grads=True)
+            if ht is not None:
+                ht.close(span)
         parts = {k: v.detach() for k, v in parts.items()}
         return loss.detach(), parts, list(grads)
 
     def add(tot, r):
         """Sum two (loss, parts, grads) results; the grads of ``tot`` in
         place."""
+        if ht is not None:
+            span = ht.open("train.accumulate")
         for a, b in zip(tot[2], r[2]):
             a.add_(b.float())
-        return (tot[0] + r[0], {k: tot[1][k] + r[1][k] for k in tot[1]}, tot[2])
+        out = (tot[0] + r[0], {k: tot[1][k] + r[1][k] for k in tot[1]}, tot[2])
+        if ht is not None:
+            ht.close(span)
+        return out
 
     def scan_sum(params, batch, k, weigh=None):
         """Sum (not mean) of loss/parts/f32-grads over ``k`` microbatches.
         The first microbatch's grads start the sum (0 + g is g), which
         saves a zeroed f32 copy of the params."""
         tot = None
-        for mb in _split_microbatches(batch, k):
-            r = grads_of(params, mb, weigh)
+        for j, mb in enumerate(_split_microbatches(batch, k)):
+            r = grads_of(params, mb, weigh, j)
             tot = r if tot is None else add(tot, r)
         return tot
 
     def mean(loss, parts, grads, k):
+        if ht is not None:
+            span = ht.open("train.accumulate")
         # a device tensor divisor: a CUDA tensor divided by a Python
         # number is multiplied by its reciprocal, jnp truly divides
         kt = torch.tensor(float(k), device=loss.device)
         for g in grads:
             g.div_(kt)
-        return loss / kt, {n: v / kt for n, v in parts.items()}, grads
+        out = loss / kt, {n: v / kt for n, v in parts.items()}, grads
+        if ht is not None:
+            ht.close(span)
+        return out
 
     def skewed(node_shares):
         return node_shares is not None and len(node_shares) > 1 \
@@ -278,6 +309,12 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, impl: str = "auto",
 
     def train_step(params, opt_state, batch, step,
                    node_shares: Optional[Sequence[int]] = None):
+        if ht is None:
+            return one_step(params, opt_state, batch, step, node_shares)
+        with ht.phase("train.step", step=step):
+            return one_step(params, opt_state, batch, step, node_shares)
+
+    def one_step(params, opt_state, batch, step, node_shares):
         sharded = layout is not None and any(
             b.is_block(p) for p, b in zip(tree_leaves(params), tree_leaves(layout[0])))
         if mesh is None:
@@ -287,11 +324,15 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, impl: str = "auto",
         grads = tree_unflatten(params, grads)
         lr = lr_at(step, base_lr=run.learning_rate,
                    warmup_steps=run.warmup_steps, total_steps=run.total_steps)
+        if ht is not None:
+            span = ht.open("train.optimizer")
         params2, opt2, om = adamw_update(
             grads, opt_state, params, lr=lr, b1=run.b1, b2=run.b2,
             eps=run.eps, weight_decay=run.weight_decay,
             grad_clip=run.grad_clip, moments=moments,
             **(dict(mesh=mesh, layout=layout) if sharded else {}))
+        if ht is not None:
+            ht.close(span)
         metrics = {"loss": loss, "lr": lr, **parts, **om}
         return params2, opt2, metrics
 
