@@ -13,7 +13,8 @@ counter (``_counters``: made and zeroed once per device, stream and
 size; every launch leaves them 0). At G in (8, 16] a split runs on the
 tensor cores (``mma.sync``, 3xTF32; hd % 16 == 0) and a row's splits are
 one thread-block cluster that merges through its shared memory: no
-scratch, no counter.
+scratch, no counter. ``out=`` makes the kernel write a given buffer (the
+serve engine's CUDA graph reads K2's output from a fixed address).
 """
 from __future__ import annotations
 
@@ -99,24 +100,39 @@ def _row_lengths(cache_len, b: int, device) -> torch.Tensor:
     return clen.to(torch.int32).contiguous()
 
 
+def _check_out(out, q, k_cache) -> None:
+    if out.shape != q.shape or out.dtype != k_cache.dtype or out.device != q.device:
+        raise ValueError(f"decode_attention: out must be {tuple(q.shape)} {k_cache.dtype} "
+                         f"on {q.device}, got {tuple(out.shape)} {out.dtype} on {out.device}")
+    if not out.is_contiguous() or (out.is_cuda and out.data_ptr() % 16):
+        raise ValueError("decode_attention: out must be contiguous and 16-byte aligned")
+
+
 def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
                             v_cache: torch.Tensor, cache_len, *,
                             window: Optional[int] = None,
-                            softcap: Optional[float] = None) -> torch.Tensor:
+                            softcap: Optional[float] = None,
+                            out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B,1,Hq,hd); caches (B,S,Hkv,hd); cache_len scalar or (B,).
-    Returns (B,1,Hq,hd) in the cache dtype."""
+    Returns (B,1,Hq,hd) in the cache dtype: ``out`` where given (q's
+    shape, the cache dtype, q's device), written in place, else a new
+    tensor."""
+    if out is not None:
+        _check_out(out, q, k_cache)
     if q.device.type == "cpu":
-        return decode_attention(q, k_cache, v_cache, cache_len,
-                                window=window, softcap=softcap)
+        res = decode_attention(q, k_cache, v_cache, cache_len,
+                               window=window, softcap=softcap)
+        return res if out is None else out.copy_(res)
     _check(q, k_cache, v_cache, window, softcap)
     refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.index != torch.cuda.current_device():    # launch from q's device
         with torch.cuda.device(q.device):
             return decode_attention_kernel(q, k_cache, v_cache, cache_len,
-                                           window=window, softcap=softcap)
+                                           window=window, softcap=softcap, out=out)
     b, _, _, d = q.shape
     out = launch(q, k_cache, v_cache, _row_lengths(cache_len, b, q.device),
-                 split_rows(b, k_cache.shape[1], k_cache.shape[2], d), window, softcap)
+                 split_rows(b, k_cache.shape[1], k_cache.shape[2], d), window, softcap,
+                 out=out)
     if out.numel():
         decode_attention_kernel.launches += 1
     return out
@@ -143,12 +159,16 @@ def _counters(device, stream: int, n: int) -> torch.Tensor:
     return c
 
 
-def launch(q, k_cache, v_cache, clen, rows: int, window, softcap) -> torch.Tensor:
+def launch(q, k_cache, v_cache, clen, rows: int, window, softcap,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The C entry on checked inputs on the current device, with ``rows``
-    cache rows a split; counts nothing. ``clen``: (B,) int32 on q's device."""
+    cache rows a split; counts nothing. ``clen``: (B,) int32 on q's device;
+    ``out``, where given, a checked buffer the kernel writes instead of a
+    new one."""
     b, _, hq, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
-    out = torch.empty(q.shape, dtype=k_cache.dtype, device=q.device)
+    if out is None:
+        out = torch.empty(q.shape, dtype=k_cache.dtype, device=q.device)
     if out.numel() == 0:
         return out
     nsplit = max(1, -(-s // rows))
@@ -160,14 +180,17 @@ def launch(q, k_cache, v_cache, clen, rows: int, window, softcap) -> torch.Tenso
     stream = torch._C._cuda_getCurrentRawStream(q.device.index)
     g = hq // hkv
     if g > MAX_CUDA_CORE_GROUPS:            # the cluster merges: no scratch, no counter
-        scratch = counters = 0
+        part, counters = None, 0
     else:                                   # the splits' partials: acc, m, l
-        scratch = torch.empty(b * hkv * nsplit * slot_floats(g, d), dtype=torch.float32,
-                              device=q.device).data_ptr()
+        # held past the launch: freed before it, its block could become
+        # the counters of a first call, which the partials then overwrite
+        part = torch.empty(b * hkv * nsplit * slot_floats(g, d), dtype=torch.float32,
+                           device=q.device)
         counters = _counters(q.device, stream, b * hkv).data_ptr()
     err = _build.library("decode_attention").decode_forward(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), clen.data_ptr(), out.data_ptr(),
-        scratch, counters, DTYPES[q.dtype], DTYPES[k_cache.dtype], b, s, hq, hkv, d, rows,
+        0 if part is None else part.data_ptr(), counters, DTYPES[q.dtype],
+        DTYPES[k_cache.dtype], b, s, hq, hkv, d, rows,
         window or 0, 1.0 / (d ** 0.5), softcap or 0.0, stream)
     _build.check(err, "decode_attention launch")
     return out

@@ -53,7 +53,7 @@ of the token embeddings.
 from __future__ import annotations
 
 import functools
-from typing import Any, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -243,7 +243,7 @@ def _write_cache_shard(cache: dict, k, v, pos: torch.Tensor, lo: int, total: int
 def _attention_mixer(cfg: ModelConfig, kind: dict, p: dict, x: torch.Tensor, *,
                      positions, impl: str, cache: Optional[dict] = None,
                      pos: Optional[torch.Tensor] = None, cp_axis: Optional[str] = None,
-                     mesh=None):
+                     mesh=None, attend: Optional[Callable] = None):
     window = cfg.window_size if kind["local"] else None
     q, k, v = _project_qkv(cfg, p, x, positions)
     if cache is None:
@@ -257,8 +257,8 @@ def _attention_mixer(cfg: ModelConfig, kind: dict, p: dict, x: torch.Tensor, *,
             window=window, softcap=cfg.attn_logit_softcap)
     else:
         _write_cache(cache, k, v, pos)
-        out = attn_mod.decode(q, cache["k"], cache["v"], pos + 1, window=window,
-                              softcap=cfg.attn_logit_softcap, impl=impl)
+        out = (attend or attn_mod.decode)(q, cache["k"], cache["v"], pos + 1, window=window,
+                                          softcap=cfg.attn_logit_softcap, impl=impl)
     wo = fsdp_gather(p["wo"], 2, x.shape[-1], current_mesh())
     if wo.shape[0] != cfg.num_heads:            # row-parallel over the heads
         y = tp_product(out, wo, 2, current_mesh())
@@ -415,12 +415,14 @@ def _ffn(cfg: ModelConfig, kind: dict, p: dict, x: torch.Tensor,
 def apply_layer(cfg: ModelConfig, slot: int, p: dict, x: torch.Tensor, *,
                 positions, impl: str = "auto", cache: Optional[dict] = None,
                 pos: Optional[torch.Tensor] = None, cp_axis: Optional[str] = None,
-                mesh=None, capacity_factor: Optional[float] = 1.25):
+                mesh=None, capacity_factor: Optional[float] = 1.25,
+                attend: Optional[Callable] = None):
     """One layer: an attention or SSM mixer, then the dense MLP or the MoE
     where the config has an FFN. With ``cache`` (one layer's ``{"k","v"}``
     of shape (B,max_len,Hkv,hd), or its SSM states) it is a decode step
     that writes the cache in place; with ``cp_axis``, this rank's rows of
-    a cache split on the sequence over that axis of ``mesh``. Returns (x, aux): the MoE's
+    a cache split on the sequence over that axis of ``mesh``; ``attend``
+    as in ``decode_step``. Returns (x, aux): the MoE's
     load-balance loss, None for other layers (JAX's 0, ``model.py:149-175``,
     without a device op on every decode step)."""
     kind = slot_kind(cfg, slot)
@@ -428,7 +430,7 @@ def apply_layer(cfg: ModelConfig, slot: int, p: dict, x: torch.Tensor, *,
     if kind["kind"] == "attn":
         mix = _attention_mixer(cfg, kind, p["attn"], h, positions=positions,
                                impl=impl, cache=cache, pos=pos, cp_axis=cp_axis,
-                               mesh=mesh)
+                               mesh=mesh, attend=attend)
     else:
         mix = _ssm_mixer(cfg, p["ssm"], h, impl=impl, cache=cache)
     return _ffn(cfg, kind, p, x + mix, capacity_factor)
@@ -661,14 +663,19 @@ def shard_cache(cfg: ModelConfig, cache: Tuple[dict, ...], mesh,
 
 def decode_step(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
                 cache: Tuple[dict, ...], pos: Union[int, torch.Tensor], *,
-                cp_axis: Optional[str] = None, mesh=None, impl: str = "auto"):
+                cp_axis: Optional[str] = None, mesh=None, impl: str = "auto",
+                attend: Optional[Callable] = None):
     """One decode step. tokens (B,1), or (B,1,C) for codebooks; pos a
     scalar (aligned batch) or (B,) int tensor (continuous batching). MoE
     layers dispatch losslessly. Writes the cache in place. With
     ``cp_axis`` (context parallelism), ``cache`` is this rank's rows of
     each attention cache split on the sequence over that axis of
     ``mesh`` (``model.py:345-364``): rank i of n holds rows [i·S/n,
-    (i+1)·S/n). Returns (logits (B,1,V) or (B,1,C,V), cache)."""
+    (i+1)·S/n). ``attend`` takes ``attention.decode``'s place (and its
+    arguments) after each attention layer's cache write, where the cache
+    is whole: the serve engine's CUDA graph ends a piece there
+    (``serve/decode_graph.py``). Returns (logits (B,1,V) or (B,1,C,V),
+    cache)."""
     x = embed_tokens(cfg, params, tokens)
     pos = torch.as_tensor(pos, device=x.device)
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
@@ -676,7 +683,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
         c = {name: t[g] for name, t in cache[slot].items()}
         x, _ = apply_layer(cfg, slot, p, x, positions=positions, impl=impl,
                            cache=c, pos=pos, cp_axis=cp_axis, mesh=mesh,
-                           capacity_factor=None)
+                           capacity_factor=None, attend=attend)
     x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return logits_for(cfg, params, x), cache
 

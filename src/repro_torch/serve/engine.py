@@ -49,6 +49,19 @@ All device work of both engines is issued on the current stream, in
 program order: the in-place cache and position writes of a slot
 admitted while a decode step is in flight follow that step's reads.
 
+On the card, with ``impl="auto"`` and no MoE layer
+(``decode_graph.applies``), the decode step is captured as CUDA graphs
+at the first decode step and replayed from then on
+(``serve/decode_graph.py``: one graph between each two attention layers'
+decode attention, which is launched eagerly between the replays), for
+the engine's fixed batch of ``slots`` rows, its cache, positions and
+weights in place. ``stats["decode_graph_replays"]`` counts the replayed
+steps; only such an engine has the key, so a CPU engine's ``stats`` stay
+the JAX engine's. A replayed step's logits are the graph's static
+output: they hold until the next decode step overwrites them, which is
+after both engines have read them (``StagedServeEngine``'s
+``DecodeStage`` reads them across its yield; its next step comes after).
+
 ``ServeEngine(host_tracer=HostTracer())`` (``obs/host.py``) records the
 synchronous engine's real work on the host's wall clock, each phase in
 the profiler's timeline while one records: ``serve.request`` (submit to
@@ -57,9 +70,11 @@ rows, requests ``admitted``, ``host_syncs``: 2 for a greedy decode step,
 1 for each prefill), ``serve.admit``, ``serve.prefill`` (``rid``,
 ``tokens``, ``bucket``) with ``serve.prefill.enqueue`` (the model and the
 sampling call) and ``serve.prefill.sync`` (the first token's host read),
-``serve.splice``, ``serve.decode`` with ``serve.decode.inputs`` and
-``serve.decode.enqueue``, and ``serve.finish`` with ``serve.finish.sync``
-(the step's token and position reads). Without one (the default) each
+``serve.splice``, ``serve.decode`` (``graphed``, and the graph's
+``pieces``, 0 when eager; the first replayed step also captures) with
+``serve.decode.inputs`` and ``serve.decode.enqueue``, and
+``serve.finish`` with ``serve.finish.sync`` (the step's token and
+position reads). Without one (the default) each
 site costs one test of ``None``; tracing changes no token.
 """
 from __future__ import annotations
@@ -76,6 +91,7 @@ from repro_torch.core.fabric import Fabric
 from repro_torch.core.runtime import FabricRuntime, Signal
 from repro_torch.models import model as M
 from repro_torch.models.params import compute_copy, layer_period, slot_kind
+from repro_torch.serve import decode_graph
 
 
 @dataclasses.dataclass
@@ -159,6 +175,8 @@ class _EngineCore:
         self.host_tracer = host_tracer
         self._request_spans: Dict[int, Any] = {}   # id(request) -> its open span
         self._host_syncs = 0                       # this step's host reads, when traced
+        self._graph: Optional[decode_graph.DecodeGraph] = None  # made at the first decode step
+        self._graphed = False
         if compute == "sim":
             self.cfg, self.params, self.device = cfg, params, None
             self.cache = None
@@ -178,6 +196,9 @@ class _EngineCore:
         attn_only = all(slot_kind(cfg, s)["kind"] == "attn"
                         for s in range(layer_period(cfg)))
         self.bucket_prefill = bucket_prefill and attn_only
+        self._graphed = decode_graph.applies(cfg, self.device, impl)
+        if self._graphed:
+            self.stats["decode_graph_replays"] = 0
 
     @staticmethod
     def _sim_token(rid: int, i: int) -> int:
@@ -275,7 +296,8 @@ class _EngineCore:
     # ------------------------------------------------------------------
     def _decode_compute(self, act: List[int]) -> Optional[torch.Tensor]:
         """One decode step for all slots; returns logits (B,1,V), or
-        (B,1,C,V) for codebooks."""
+        (B,1,C,V) for codebooks. Replayed (module docstring), they are the
+        graph's output and hold until the next decode step."""
         if self.compute == "sim":
             for s in range(self.slots):
                 if self.active[s] is not None:
@@ -285,24 +307,37 @@ class _EngineCore:
         ht = self.host_tracer
         if ht is not None:
             span = ht.open("serve.decode", active=len(act))
+        if self._graphed and self._graph is None:
+            self._graph = decode_graph.DecodeGraph(self.cfg, self.params, self.cache,
+                                                   self.pos, self.cache_dtype)
+        graph = self._graph
+        if ht is not None:
             part = ht.open("serve.decode.inputs")
         cb = self.cfg.num_codebooks
         last = np.zeros((self.slots,) + ((cb,) if cb > 1 else ()), np.int64)
         for s in act:
             last[s] = self.active[s].out_tokens[-1]
-        tokens = torch.as_tensor(last, device=self.device)[:, None]     # (B,1[,C])
+        if graph is None:
+            tokens = torch.as_tensor(last, device=self.device)[:, None]     # (B,1[,C])
+        else:
+            graph.tokens.copy_(torch.from_numpy(last).view(graph.tokens.shape))
         if ht is not None:
             ht.close(part)
             part = ht.open("serve.decode.enqueue")
-        logits, self.cache = M.decode_step(self.cfg, self.params, tokens,
-                                           self.cache, self.pos, impl=self.impl)
+        if graph is None:
+            logits, self.cache = M.decode_step(self.cfg, self.params, tokens,
+                                               self.cache, self.pos, impl=self.impl)
+        else:
+            logits = graph.replay()
+            self.stats["decode_graph_replays"] += 1
         if ht is not None:
             ht.close(part)
         live = [1 if self.active[s] is not None else 0 for s in range(self.slots)]
         self.pos += torch.as_tensor(live, dtype=torch.int32, device=self.device)
         self.stats["decode_steps"] += 1
         if ht is not None:
-            ht.close(span)
+            ht.close(span, graphed=graph is not None,
+                     pieces=0 if graph is None else graph.pieces)
         return logits
 
     def _finish_decode(self, act: List[int], logits) -> List[Request]:
