@@ -27,15 +27,22 @@ _MODULES = {
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large",
 }
 
+#: archs of the port alone, outside ``list_archs``/``all_configs`` (which
+#: stay the JAX package's): their configs use fields ``ModelConfig`` lacks
+_PORT_MODULES = {
+    "granite-4.0-h-small": "repro_torch.configs.granite_4_0_h_small",
+}
+
 
 def list_archs() -> List[str]:
     return list(_MODULES)
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in _MODULES:
-        raise KeyError(f"unknown --arch {arch!r}; known: {', '.join(_MODULES)}")
-    cfg: ModelConfig = importlib.import_module(_MODULES[arch]).CONFIG
+    modules = {**_MODULES, **_PORT_MODULES}
+    if arch not in modules:
+        raise KeyError(f"unknown --arch {arch!r}; known: {', '.join(modules)}")
+    cfg: ModelConfig = importlib.import_module(modules[arch]).CONFIG
     if cfg.name != arch:
         raise ValueError(f"config module for {arch!r} names {cfg.name!r}")
     return cfg

@@ -112,27 +112,29 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
                             v_cache: torch.Tensor, cache_len, *,
                             window: Optional[int] = None,
                             softcap: Optional[float] = None,
-                            out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q (B,1,Hq,hd); caches (B,S,Hkv,hd); cache_len scalar or (B,).
-    Returns (B,1,Hq,hd) in the cache dtype: ``out`` where given (q's
-    shape, the cache dtype, q's device), written in place, else a new
-    tensor."""
+                            out: Optional[torch.Tensor] = None,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,1,Hq,hd); caches (B,S,Hkv,hd); cache_len scalar or (B,);
+    ``scale`` the scores' factor, 1/sqrt(hd) where None. Returns
+    (B,1,Hq,hd) in the cache dtype: ``out`` where given (q's shape, the
+    cache dtype, q's device), written in place, else a new tensor."""
     if out is not None:
         _check_out(out, q, k_cache)
     if q.device.type == "cpu":
         res = decode_attention(q, k_cache, v_cache, cache_len,
-                               window=window, softcap=softcap)
+                               window=window, softcap=softcap, scale=scale)
         return res if out is None else out.copy_(res)
     _check(q, k_cache, v_cache, window, softcap)
     refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.index != torch.cuda.current_device():    # launch from q's device
         with torch.cuda.device(q.device):
             return decode_attention_kernel(q, k_cache, v_cache, cache_len,
-                                           window=window, softcap=softcap, out=out)
+                                           window=window, softcap=softcap, out=out,
+                                           scale=scale)
     b, _, _, d = q.shape
     out = launch(q, k_cache, v_cache, _row_lengths(cache_len, b, q.device),
                  split_rows(b, k_cache.shape[1], k_cache.shape[2], d), window, softcap,
-                 out=out)
+                 out=out, scale=scale)
     if out.numel():
         decode_attention_kernel.launches += 1
     return out
@@ -160,11 +162,12 @@ def _counters(device, stream: int, n: int) -> torch.Tensor:
 
 
 def launch(q, k_cache, v_cache, clen, rows: int, window, softcap,
-           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+           out: Optional[torch.Tensor] = None,
+           scale: Optional[float] = None) -> torch.Tensor:
     """The C entry on checked inputs on the current device, with ``rows``
     cache rows a split; counts nothing. ``clen``: (B,) int32 on q's device;
     ``out``, where given, a checked buffer the kernel writes instead of a
-    new one."""
+    new one; ``scale`` the scores' factor, 1/sqrt(hd) where None."""
     b, _, hq, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     if out is None:
@@ -191,7 +194,7 @@ def launch(q, k_cache, v_cache, clen, rows: int, window, softcap,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), clen.data_ptr(), out.data_ptr(),
         0 if part is None else part.data_ptr(), counters, DTYPES[q.dtype],
         DTYPES[k_cache.dtype], b, s, hq, hkv, d, rows,
-        window or 0, 1.0 / (d ** 0.5), softcap or 0.0, stream)
+        window or 0, 1.0 / (d ** 0.5) if scale is None else scale, softcap or 0.0, stream)
     _build.check(err, "decode_attention launch")
     return out
 

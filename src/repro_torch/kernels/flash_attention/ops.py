@@ -50,16 +50,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, softcap):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
-    """q (B,S,Hq,hd); k/v (B,S,Hkv,hd) -> (B,S,Hq,hd) in q.dtype."""
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,S,Hq,hd); k/v (B,S,Hkv,hd) -> (B,S,Hq,hd) in q.dtype; ``scale``
+    the scores' factor, 1/sqrt(hd) where None."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
-                             softcap=softcap).to(q.dtype)
+                             softcap=softcap, scale=scale).to(q.dtype)
     _check(q, k, v, window, softcap)
     refuse_grad("flash_attention", q, k, v)
     if q.device.index != torch.cuda.current_device():    # launch from q's device
         with torch.cuda.device(q.device):
-            return flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+            return flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                                   scale=scale)
     b, s, hq, d = q.shape
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -70,7 +73,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch._C._cuda_getCurrentRawStream(q.device.index)
     err = _build.library("flash_attention").fa_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPES[q.dtype], b, s, hq,
-        k.shape[2], d, int(causal), window or 0, 1.0 / (d ** 0.5), softcap or 0.0, stream)
+        k.shape[2], d, int(causal), window or 0, 1.0 / (d ** 0.5) if scale is None else scale,
+        softcap or 0.0, stream)
     _build.check(err, "flash_attention launch")
     flash_attention.launches += 1
     return out

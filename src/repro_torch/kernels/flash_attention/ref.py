@@ -25,16 +25,17 @@ def expand_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
                   softcap: Optional[float] = None,
-                  q_offset: int = 0) -> torch.Tensor:
+                  q_offset: int = 0, scale: Optional[float] = None) -> torch.Tensor:
     """Quadratic reference in f32; returns v.dtype. q_offset: absolute
-    position of q[0] (suffix attention against a longer KV prefix)."""
+    position of q[0] (suffix attention against a longer KV prefix);
+    ``scale`` the scores' factor, 1/sqrt(hd) where None."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     qf = q.float()
     kf = expand_kv(k, hq // hkv).float()
     vf = expand_kv(v, hq // hkv).float()
-    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf) / math.sqrt(d)
-    scores = softcap_(scores, softcap)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    scores = softcap_(scores / math.sqrt(d) if scale is None else scores * scale, softcap)
     qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
     kpos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)

@@ -44,7 +44,7 @@ BLOCKED_FROM = 2048
 def attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
                       softcap: Optional[float] = None, q_block: int = 512,
-                      kv_block: int = 512) -> torch.Tensor:
+                      kv_block: int = 512, scale: Optional[float] = None) -> torch.Tensor:
     """Flash-style attention with online softmax, blocked over q and kv,
     in f32 (``repro/models/attention.py:68-157``); returns v.dtype.
 
@@ -52,15 +52,17 @@ def attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window) are skipped, as JAX's ``lax.cond`` skips them. A length that
     is not a multiple of both blocks falls back to ``attention_ref``, as
     there. Differentiable: the training forward's attention from 2048
-    tokens."""
+    tokens. ``scale`` multiplies the scores, 1/sqrt(hd) where None."""
     b, s, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if s != skv:
         raise ValueError("attention_blocked is for self-attention (train/prefill)")
     if s % q_block or s % kv_block:
-        return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+        return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                             scale=scale)
     groups = hq // hkv
-    scale = 1.0 / (d ** 0.5)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
     qt = q.transpose(1, 2).float() * scale               # (B, Hq, S, d)
     kt = k.transpose(1, 2).float()                       # (B, Hkv, S, d)
     vt = v.transpose(1, 2).float()
@@ -111,7 +113,8 @@ def attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention_context_parallel(q: torch.Tensor, k_cache: torch.Tensor,
                                       v_cache: torch.Tensor, cache_len, *, mesh,
                                       axis: str = "data", window: Optional[int] = None,
-                                      softcap: Optional[float] = None) -> torch.Tensor:
+                                      softcap: Optional[float] = None,
+                                      scale: Optional[float] = None) -> torch.Tensor:
     """One-token attention against a cache whose sequence dim is split
     over the mesh axis ``axis`` (``attention.py:184-250``), on this
     rank's local tensors: q (B,1,Hq,hd) whole, the caches this rank's
@@ -129,7 +132,8 @@ def decode_attention_context_parallel(q: torch.Tensor, k_cache: torch.Tensor,
 
     Paper mapping: the query visits a remote, sharded value store and
     the partial results combine, DrTM-KV's multi-path get with the LSE
-    merge as the client-side combine."""
+    merge as the client-side combine. ``scale`` multiplies the scores,
+    1/sqrt(hd) where None."""
     b, _, hq, d = q.shape
     s_local, hkv = k_cache.shape[1], k_cache.shape[2]
     groups = hq // hkv
@@ -138,8 +142,8 @@ def decode_attention_context_parallel(q: torch.Tensor, k_cache: torch.Tensor,
     qf = q.float()[:, 0]
     kf = expand_kv(k_cache, groups).float()
     vf = expand_kv(v_cache, groups).float()
-    scores = torch.einsum("bhd,bkhd->bhk", qf, kf) / math.sqrt(d)
-    scores = softcap_(scores, softcap)
+    scores = torch.einsum("bhd,bkhd->bhk", qf, kf)
+    scores = softcap_(scores / math.sqrt(d) if scale is None else scores * scale, softcap)
     kpos = idx * s_local + torch.arange(s_local, device=q.device)[None, :]
     clen = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
     mask = kpos < clen
@@ -170,23 +174,27 @@ def train_impl(seq_len: int) -> str:
 
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-              softcap: Optional[float] = None, impl: str = "auto"):
-    """Self-attention for train / prefill: q (B,S,Hq,hd), k/v (B,S,Hkv,hd)."""
+              softcap: Optional[float] = None, impl: str = "auto",
+              scale: Optional[float] = None):
+    """Self-attention for train / prefill: q (B,S,Hq,hd), k/v (B,S,Hkv,hd);
+    ``scale`` multiplies the scores, 1/sqrt(hd) where None."""
     if use_kernel(impl, q):
         return flash_attention(q, k, v, causal=causal, window=window,
-                               softcap=softcap)
+                               softcap=softcap, scale=scale)
     if impl == "blocked":
         return attention_blocked(q, k, v, causal=causal, window=window,
-                                 softcap=softcap)
-    return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+                                 softcap=softcap, scale=scale)
+    return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                         scale=scale)
 
 
 def decode(q, k_cache, v_cache, cache_len, *, window: Optional[int] = None,
-           softcap: Optional[float] = None, impl: str = "auto"):
+           softcap: Optional[float] = None, impl: str = "auto",
+           scale: Optional[float] = None):
     """One-token attention: q (B,1,Hq,hd), caches (B,S,Hkv,hd), cache_len
-    scalar or (B,). Returns the cache dtype."""
+    scalar or (B,); ``scale`` as in ``attention``. Returns the cache dtype."""
     if use_kernel(impl, q):
         return decode_attention_kernel(q, k_cache, v_cache, cache_len,
-                                       window=window, softcap=softcap)
+                                       window=window, softcap=softcap, scale=scale)
     return decode_attention(q, k_cache, v_cache, cache_len, window=window,
-                            softcap=softcap)
+                            softcap=softcap, scale=scale)

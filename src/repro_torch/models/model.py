@@ -45,7 +45,16 @@ max and of the sum). A whole weight keeps the replicated compute.
 An MoE layer's FFN is ``moe.moe_ffn`` (the local dispatch; its
 load-balance loss sums into ``ForwardResult.aux_loss``), with
 ``capacity_factor`` 1.25 in ``forward`` and lossless (``None``) in
-``prefill`` and ``decode_step``, as in the JAX package. Codebook configs
+``prefill`` and ``decode_step``, as in the JAX package; ``decode_step``
+leaves the MoE metrics out, which it would throw away. A
+config of the port's own (``configs/port.py::HybridMoEConfig``, read
+through ``option``, whose defaults leave every other arch as it is)
+adds a shared expert beside
+the MoE (``_ffn``), the experts held here (``experts_held``), a bias on
+the Mamba2 conv, NoPE attention, and multipliers on the embedding (in
+f32, before its bf16 rounding), on each residual branch (``_branch``),
+on the attention scores (K1's and K2's softmax scale, in place of
+1/sqrt(hd)) and on the logits. Codebook configs
 take tokens (B,S,C), embed them as the sum of the per-codebook tables
 and give logits (B,S,C,V); a frontend's embeddings (B,F,D) go in front
 of the token embeddings.
@@ -63,6 +72,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.port import option
 from repro_torch.kernels import use_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import attention as attn_mod
@@ -125,6 +135,8 @@ def embed_tokens(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
         x = _masked(table[tokens], inside)
     if lo is not None:
         x = all_reduce(x, mesh.get_group("model"))
+    if option(cfg, "embedding_multiplier") != 1.0:     # in f32, one rounding below
+        x = x * option(cfg, "embedding_multiplier")
     x = x.to(_dtype(cfg))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
@@ -184,6 +196,8 @@ def _project_qkv(cfg: ModelConfig, p: dict, h: torch.Tensor, positions):
     def proj(w):
         return (xc @ w.to(torch.bfloat16).reshape(d, -1)).view(b, s, w.shape[1], w.shape[2])
 
+    if not option(cfg, "rope"):                 # NoPE
+        return proj(wq), proj(wk), proj(wv)
     q = rope(proj(wq), positions, cfg.rope_theta, cfg.rope_fraction)
     k = rope(proj(wk), positions, cfg.rope_theta, cfg.rope_fraction)
     return q, k, proj(wv)
@@ -245,20 +259,22 @@ def _attention_mixer(cfg: ModelConfig, kind: dict, p: dict, x: torch.Tensor, *,
                      pos: Optional[torch.Tensor] = None, cp_axis: Optional[str] = None,
                      mesh=None, attend: Optional[Callable] = None):
     window = cfg.window_size if kind["local"] else None
+    scale = option(cfg, "attention_multiplier")
     q, k, v = _project_qkv(cfg, p, x, positions)
     if cache is None:
         out = attn_mod.attention(q, k, v, causal=True, window=window,
-                                 softcap=cfg.attn_logit_softcap, impl=impl)
+                                 softcap=cfg.attn_logit_softcap, impl=impl, scale=scale)
     elif cp_axis:
         rows, n = cache["k"].shape[1], mesh.shape[cp_axis]
         _write_cache_shard(cache, k, v, pos, mesh.index(cp_axis) * rows, rows * n)
         out = attn_mod.decode_attention_context_parallel(
             q, cache["k"], cache["v"], pos + 1, mesh=mesh, axis=cp_axis,
-            window=window, softcap=cfg.attn_logit_softcap)
+            window=window, softcap=cfg.attn_logit_softcap, scale=scale)
     else:
         _write_cache(cache, k, v, pos)
         out = (attend or attn_mod.decode)(q, cache["k"], cache["v"], pos + 1, window=window,
-                                          softcap=cfg.attn_logit_softcap, impl=impl)
+                                          softcap=cfg.attn_logit_softcap, impl=impl,
+                                          scale=scale)
     wo = fsdp_gather(p["wo"], 2, x.shape[-1], current_mesh())
     if wo.shape[0] != cfg.num_heads:            # row-parallel over the heads
         y = tp_product(out, wo, 2, current_mesh())
@@ -297,18 +313,25 @@ def _ssm_inputs(cfg: ModelConfig, p: dict, h: torch.Tensor):
 
 
 def _ssm_scan_inputs(cfg: ModelConfig, p: dict, x_in, b_in, c_in, dt_raw):
-    """Conv, silu and softplus over a whole prompt (``model.py:113-120``):
-    the scan's xh (B,S,H,P), dt (B,S,H) f32, B and C (B,S,N) contiguous,
-    and the conv states (the last K-1 inputs of x, B, C). H is this
-    rank's heads where x_in is its block."""
+    """Conv (with its bias where the config has one), silu and softplus
+    over a whole prompt (``model.py:113-120``): the scan's xh (B,S,H,P),
+    dt (B,S,H) f32, B and C (B,S,N) contiguous, and the conv states (the
+    last K-1 inputs of x, B, C). H is this rank's heads where x_in is its
+    block."""
     b, s, din = x_in.shape
     conv_b, conv_c = p["conv_b"], p["conv_c"]
+    bias_b, bias_c = p.get("conv_b_bias"), p.get("conv_c_bias")
     if din != cfg.d_inner:
         mesh = current_mesh()
         conv_b, conv_c = tp_enter(conv_b, mesh), tp_enter(conv_c, mesh)
+        if bias_b is not None:
+            bias_b, bias_c = tp_enter(bias_b, mesh), tp_enter(bias_c, mesh)
     x_conv, st_x = ssm_mod.causal_conv(x_in, p["conv_x"].to(x_in.dtype))
     b_conv, st_b = ssm_mod.causal_conv(b_in, conv_b.to(b_in.dtype))
     c_conv, st_c = ssm_mod.causal_conv(c_in, conv_c.to(c_in.dtype))
+    if bias_b is not None:
+        x_conv, b_conv, c_conv = (y + bias.to(y.dtype) for y, bias in (
+            (x_conv, p["conv_x_bias"]), (b_conv, bias_b), (c_conv, bias_c)))
     x_conv, b_conv, c_conv = F.silu(x_conv), F.silu(b_conv), F.silu(c_conv)
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     xh = x_conv.view(b, s, din // cfg.ssm_head_dim, cfg.ssm_head_dim)
@@ -346,6 +369,9 @@ def _ssm_step(cfg: ModelConfig, p: dict, x_in, b_in, c_in, dt_raw, A,
     x_c, cs_x = ssm_mod.causal_conv_step(x_in[:, 0], p["conv_x"].to(x_in.dtype), cache["conv_x"])
     b_c, cs_b = ssm_mod.causal_conv_step(b_in[:, 0], p["conv_b"].to(b_in.dtype), cache["conv_b"])
     c_c, cs_c = ssm_mod.causal_conv_step(c_in[:, 0], p["conv_c"].to(c_in.dtype), cache["conv_c"])
+    if "conv_x_bias" in p:
+        x_c, b_c, c_c = (y + p[name].to(y.dtype) for y, name in (
+            (x_c, "conv_x_bias"), (b_c, "conv_b_bias"), (c_c, "conv_c_bias")))
     x_c, b_c, c_c = F.silu(x_c), F.silu(b_c), F.silu(c_c)
     dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"].float())
     xh = x_c.view(b, cfg.ssm_heads, cfg.ssm_head_dim)
@@ -395,36 +421,50 @@ def _ssm_mixer(cfg: ModelConfig, p: dict, x: torch.Tensor, *, impl: str,
     return _ssm_out(cfg, p, y, z, x.dtype, row=True)
 
 
+def _branch(cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
+    """A residual branch's output times ``residual_multiplier``."""
+    r = option(cfg, "residual_multiplier")
+    return y if r == 1.0 else y * r
+
+
 def _ffn(cfg: ModelConfig, kind: dict, p: dict, x: torch.Tensor,
-         capacity_factor: Optional[float]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+         capacity_factor: Optional[float], *, metrics: bool = True,
+         held_count: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The residual FFN (``model.py:163-173``): the dense gated MLP, or
-    the MoE at ``capacity_factor``. Returns (x, the MoE's load-balance
-    loss, or None)."""
+    the MoE at ``capacity_factor`` plus the shared expert where the
+    config has one. Returns (x, the MoE's load-balance loss, or None:
+    also with ``metrics=False``, which leaves the MoE's metrics out);
+    ``held_count`` as ``moe.moe_ffn``'s."""
     if not kind["has_ffn"]:
         return x, None
     h = rmsnorm(x, p["norm2"]["scale"], cfg.norm_eps)
     act = activation_fn(cfg.mlp_activation)
     if kind["moe"]:
-        y, metrics = moe_ffn(h, p["moe"], num_experts=cfg.num_experts,
-                             top_k=cfg.num_experts_per_tok, activation=act,
-                             capacity_factor=capacity_factor)
-        return x + y, metrics.aux_loss
-    return x + mlp(h, p["mlp"], act, d_ff=cfg.d_ff), None
+        y, got = moe_ffn(h, p["moe"], num_experts=cfg.num_experts,
+                         top_k=cfg.num_experts_per_tok, activation=act,
+                         capacity_factor=capacity_factor, metrics=metrics,
+                         held_count=held_count)
+        if "shared" in p:
+            y = y + mlp(h, p["shared"], act, d_ff=option(cfg, "shared_d_ff"))
+        return x + _branch(cfg, y), None if got is None else got.aux_loss
+    return x + _branch(cfg, mlp(h, p["mlp"], act, d_ff=cfg.d_ff)), None
 
 
 def apply_layer(cfg: ModelConfig, slot: int, p: dict, x: torch.Tensor, *,
                 positions, impl: str = "auto", cache: Optional[dict] = None,
                 pos: Optional[torch.Tensor] = None, cp_axis: Optional[str] = None,
                 mesh=None, capacity_factor: Optional[float] = 1.25,
-                attend: Optional[Callable] = None):
+                attend: Optional[Callable] = None,
+                held_count: Optional[torch.Tensor] = None):
     """One layer: an attention or SSM mixer, then the dense MLP or the MoE
     where the config has an FFN. With ``cache`` (one layer's ``{"k","v"}``
     of shape (B,max_len,Hkv,hd), or its SSM states) it is a decode step
     that writes the cache in place; with ``cp_axis``, this rank's rows of
     a cache split on the sequence over that axis of ``mesh``; ``attend``
-    as in ``decode_step``. Returns (x, aux): the MoE's
-    load-balance loss, None for other layers (JAX's 0, ``model.py:149-175``,
-    without a device op on every decode step)."""
+    and ``held_count`` as in ``decode_step``. Returns (x, aux): the MoE's
+    load-balance loss, None for other layers and for a decode step (JAX's
+    0, ``model.py:149-175``, without a device op on every decode step)."""
     kind = slot_kind(cfg, slot)
     h = rmsnorm(x, p["norm1"]["scale"], cfg.norm_eps)
     if kind["kind"] == "attn":
@@ -433,7 +473,8 @@ def apply_layer(cfg: ModelConfig, slot: int, p: dict, x: torch.Tensor, *,
                                mesh=mesh, attend=attend)
     else:
         mix = _ssm_mixer(cfg, p["ssm"], h, impl=impl, cache=cache)
-    return _ffn(cfg, kind, p, x + mix, capacity_factor)
+    return _ffn(cfg, kind, p, x + _branch(cfg, mix), capacity_factor,
+                metrics=cache is None, held_count=held_count)
 
 
 # ----------------------------------------------------------------------
@@ -509,11 +550,14 @@ def _head(cfg: ModelConfig, params: PyTree, hidden: torch.Tensor):
 
 
 def _head_logits(cfg: ModelConfig, h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """f32 logits of bf16 products, soft-capped where the config says."""
+    """f32 logits of bf16 products, divided by ``logits_scaling`` and
+    soft-capped where the config says."""
     if cfg.num_codebooks > 1:
         logits = torch.einsum("bsd,cvd->bscv", h, table).float()
     else:
         logits = (h @ table.T).float()
+    if option(cfg, "logits_scaling") != 1.0:
+        logits = logits / option(cfg, "logits_scaling")
     if cfg.final_logit_softcap:
         logits = cfg.final_logit_softcap * torch.tanh(logits / cfg.final_logit_softcap)
     return logits
@@ -664,7 +708,8 @@ def shard_cache(cfg: ModelConfig, cache: Tuple[dict, ...], mesh,
 def decode_step(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
                 cache: Tuple[dict, ...], pos: Union[int, torch.Tensor], *,
                 cp_axis: Optional[str] = None, mesh=None, impl: str = "auto",
-                attend: Optional[Callable] = None):
+                attend: Optional[Callable] = None,
+                held_count: Optional[torch.Tensor] = None):
     """One decode step. tokens (B,1), or (B,1,C) for codebooks; pos a
     scalar (aligned batch) or (B,) int tensor (continuous batching). MoE
     layers dispatch losslessly. Writes the cache in place. With
@@ -674,8 +719,9 @@ def decode_step(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     (i+1)·S/n). ``attend`` takes ``attention.decode``'s place (and its
     arguments) after each attention layer's cache write, where the cache
     is whole: the serve engine's CUDA graph ends a piece there
-    (``serve/decode_graph.py``). Returns (logits (B,1,V) or (B,1,C,V),
-    cache)."""
+    (``serve/decode_graph.py``). ``held_count`` (an int64 device scalar)
+    gains the (token, k) assignments that the MoE layers' held experts
+    kept, on the device. Returns (logits (B,1,V) or (B,1,C,V), cache)."""
     x = embed_tokens(cfg, params, tokens)
     pos = torch.as_tensor(pos, device=x.device)
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
@@ -683,7 +729,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
         c = {name: t[g] for name, t in cache[slot].items()}
         x, _ = apply_layer(cfg, slot, p, x, positions=positions, impl=impl,
                            cache=c, pos=pos, cp_axis=cp_axis, mesh=mesh,
-                           capacity_factor=None, attend=attend)
+                           capacity_factor=None, attend=attend, held_count=held_count)
     x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return logits_for(cfg, params, x), cache
 
@@ -691,7 +737,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
 def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
             max_len: int, *, frontend_embeds: Optional[torch.Tensor] = None,
             impl: str = "auto", cache_dtype: torch.dtype = torch.bfloat16,
-            length: Optional[int] = None):
+            length: Optional[int] = None, held_count: Optional[torch.Tensor] = None):
     """Run the whole prompt (after ``frontend_embeds``, where given) and
     build a cache for decode; MoE layers dispatch losslessly. Returns
     (logits (B,1,V) or (B,1,C,V), cache, next_pos).
@@ -705,7 +751,8 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
 
     An SSM layer keeps the final state and the conv inputs for decode;
     where JAX runs ``ssd_chunked`` (``model.py:437``), the card runs the
-    CUDA ``ssd_scan`` kernel, which returns the final state too."""
+    CUDA ``ssd_scan`` kernel, which returns the final state too.
+    ``held_count`` as in ``decode_step``."""
     x = embed_tokens(cfg, params, tokens, frontend_embeds)
     b, s, _ = x.shape
     if s > max_len:
@@ -724,20 +771,21 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
             q, k, v = _project_qkv(cfg, p["attn"], h, positions)
             window = cfg.window_size if kind["local"] else None
             out = attn_mod.attention(q, k, v, causal=True, window=window,
-                                     softcap=cfg.attn_logit_softcap, impl=impl)
-            x = x + _out_proj(p["attn"], out, x.dtype)
+                                     softcap=cfg.attn_logit_softcap, impl=impl,
+                                     scale=option(cfg, "attention_multiplier"))
+            x = x + _branch(cfg, _out_proj(p["attn"], out, x.dtype))
             c["k"][g, :, :s] = k
             c["v"][g, :, :s] = v
         else:
             x_in, z, b_in, c_in, dt_raw, A = _ssm_inputs(cfg, p["ssm"], h)
             y, hfin, (st_x, st_b, st_c) = _ssm_sequence(
                 cfg, p["ssm"], x_in, b_in, c_in, dt_raw, A, impl=impl)
-            x = x + _ssm_out(cfg, p["ssm"], y, z, x.dtype)
+            x = x + _branch(cfg, _ssm_out(cfg, p["ssm"], y, z, x.dtype))
             c["h"][g] = hfin
             c["conv_x"][g] = st_x
             c["conv_b"][g] = st_b
             c["conv_c"][g] = st_c
-        x, _ = _ffn(cfg, kind, p, x, None)
+        x, _ = _ffn(cfg, kind, p, x, None, held_count=held_count)
     x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
     npos = s if length is None else int(length)
     return logits_for(cfg, params, x[:, npos - 1:npos]), cache, npos

@@ -20,6 +20,17 @@ Two execution paths, as in the JAX module:
   gather reduce-scatters over ``data``, and the aux loss's mean over the
   batch axes hands each shard 1/n of the cotangent.
 
+Without a mesh the layer may hold only experts [0, E_held) of the E the
+router scores (``_moe_local``): a chip's share of an expert-parallel
+layer, routing over all and computing its own experts' part of the
+result, as a rank of ``_moe_ep`` does, without the exchange. Its
+lossless dispatch (capacity ``None``: ``_capacity`` gives T) has a
+buffer of ``E_held x T`` rows whatever the routing, and nothing in it
+reads the device from the host or copies a host value in, so the serve
+engine replays an MoE decode step as a CUDA graph
+(``serve/decode_graph.py``). The decode step leaves the metrics out
+(``metrics=False``), which it would throw away.
+
 Tokens are routed top-k (``router_topk``), scattered into a per-expert
 capacity buffer of ``cap`` rows each (``_dispatch_compute_combine``), run
 through the experts' gated MLPs as two batched bf16 products
@@ -86,8 +97,11 @@ def _counts(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
 def _share(x: torch.Tensor, n: int) -> torch.Tensor:
     """``x / max(n, 1)`` in f32, a true division as jnp's. The divisor is a
     tensor on x's device: torch multiplies a CUDA tensor by the reciprocal
-    of a Python number, so a count of n over n would not be 1."""
-    return x.float() / torch.tensor(float(max(n, 1)), device=x.device)
+    of a Python number, so a count of n over n would not be 1. It is
+    filled there (``torch.full``), not copied from the host, which would
+    wait for the device."""
+    return x.float() / torch.full((), float(max(n, 1)), dtype=torch.float32,
+                                  device=x.device)
 
 
 def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
@@ -124,12 +138,13 @@ def _dispatch_compute_combine(x2d, weights, idx, *, lo: int, e_local: int, cap: 
     flat_e = idx.reshape(t * k)
     is_mine = (flat_e >= lo) & (flat_e < lo + e_local)
     eff = torch.where(is_mine, flat_e - lo, e_local)               # trash bucket
-    onehot = F.one_hot(eff, e_local + 1)[:, :e_local]
+    # one-hot by comparison: F.one_hot may check its classes on the host
+    onehot = (eff[:, None] == torch.arange(e_local, device=eff.device)).long()
     pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1       # (T*k,)
     keep = is_mine & (pos < cap) & (pos >= 0)
     slot = torch.where(keep, eff * cap + pos, e_local * cap)
 
-    x_rep = torch.repeat_interleave(x2d, k, dim=0)
+    x_rep = x2d[:, None].expand(t, k, d).reshape(t * k, d)         # each token k times
     # every dropped assignment writes the trash row, which no expert reads
     buf = x2d.new_zeros((e_local * cap + 1, d)).index_put((slot,), x_rep)
     out = _expert_compute(buf[:e_local * cap].reshape(e_local, cap, d),
@@ -174,15 +189,27 @@ def replicate_hot_experts(idx: torch.Tensor, probs: Optional[torch.Tensor], *,
 
 def _moe_local(x: torch.Tensor, params: dict, *, num_experts: int, top_k: int,
                activation, capacity_factor: Optional[float],
-               hot_expert_replicas: int = 1):
+               hot_expert_replicas: int = 1, metrics: bool = True,
+               held_count: Optional[torch.Tensor] = None):
     """``moe.py:136-163``: route, (optionally) replicate the hot experts,
-    dispatch with capacity, combine; the metrics over the real experts."""
+    dispatch with capacity, combine; the metrics over the real experts.
+
+    ``params["w_in"]`` holds experts [0, E_held) of the ``num_experts``
+    the router scores (all of them, or a chip's share of an
+    expert-parallel layer): every token is routed over all, and only the
+    held experts' part of the result is computed, as ``_moe_ep``'s rank
+    computes its own. ``metrics=False`` leaves the metrics out (None);
+    ``held_count`` (an int64 device scalar) gains the (token, k)
+    assignments the held experts kept. Neither reads the device from the
+    host, so a decode step stays capturable as a CUDA graph."""
     b, s, d = x.shape
     e, k = num_experts, top_k
+    held = params["w_in"].shape[0]
+    if held != e and hot_expert_replicas > 1:
+        raise ValueError("hot-expert replication needs every expert held")
     t = b * s
     x2d = x.reshape(t, d)
     weights, idx, probs = router_topk(x2d, params["router"], k)
-    aux = load_balance_loss(probs, idx, e)
     cap = _capacity(t, k, e, capacity_factor)
     w_in, w_out = params["w_in"], params["w_out"]
     didx = idx
@@ -190,14 +217,22 @@ def _moe_local(x: torch.Tensor, params: dict, *, num_experts: int, top_k: int,
         didx, parents = replicate_hot_experts(idx, probs, num_experts=e,
                                               replicas=hot_expert_replicas)
         w_in, w_out = w_in[parents], w_out[parents]
-        e = parents.shape[0]
-    y, keep, _ = _dispatch_compute_combine(
-        x2d, weights, didx, lo=0, e_local=e, cap=cap,
+        held = parents.shape[0]
+    y, keep, is_mine = _dispatch_compute_combine(
+        x2d, weights, didx, lo=0, e_local=held, cap=cap,
         w_in=w_in, w_out=w_out, activation=activation)
+    if held_count is not None:
+        held_count.add_(keep.sum())
+    y = y.reshape(b, s, d).to(x.dtype)
+    if not metrics:
+        return y, None
+    aux = load_balance_loss(probs, idx, e)
     load = _share(_counts(idx, num_experts, torch.float32), idx.numel())
-    metrics = MoEMetrics(aux_loss=aux, dropped_frac=1.0 - _share(keep.sum(), keep.numel()),
-                         expert_load=load)
-    return y.reshape(b, s, d).to(x.dtype), metrics
+    if held < e:        # dropped among the assignments to the held experts
+        dropped = 1.0 - keep.sum().float() / is_mine.sum().clamp(min=1).float()
+    else:
+        dropped = 1.0 - _share(keep.sum(), keep.numel())
+    return y, MoEMetrics(aux_loss=aux, dropped_frac=dropped, expert_load=load)
 
 
 def _moe_ep(x: torch.Tensor, params: dict, mesh, *, num_experts: int, top_k: int,
@@ -255,9 +290,12 @@ def aux_shards() -> int:
 
 def moe_ffn(x: torch.Tensor, params: dict, *, num_experts: int, top_k: int,
             activation, capacity_factor: Optional[float] = 1.25,
-            hot_expert_replicas: int = 1):
-    """x (B,S,D) -> ((B,S,D), MoEMetrics). ``params``: ``router`` (D,E),
-    ``w_in`` (E,D,2,F), ``w_out`` (E,F,D). ``capacity_factor=None`` is
+            hot_expert_replicas: int = 1, metrics: bool = True,
+            held_count: Optional[torch.Tensor] = None):
+    """x (B,S,D) -> ((B,S,D), MoEMetrics, or None with ``metrics=False``).
+    ``params``: ``router`` (D,E), ``w_in`` (E,D,2,F), ``w_out`` (E,F,D), or
+    without a mesh the held experts [0, E_held) of them (``_moe_local``,
+    which also takes ``held_count``). ``capacity_factor=None`` is
     lossless (each expert may take every token); ``hot_expert_replicas >
     1`` enables Advice #1's hot-expert replication (local dispatch only:
     the EP path balances by shard ownership).
@@ -280,7 +318,8 @@ def moe_ffn(x: torch.Tensor, params: dict, *, num_experts: int, top_k: int,
                            ep=ep, bax=bax)
     return _moe_local(x, params, num_experts=e, top_k=top_k,
                       activation=activation, capacity_factor=capacity_factor,
-                      hot_expert_replicas=hot_expert_replicas)
+                      hot_expert_replicas=hot_expert_replicas, metrics=metrics,
+                      held_count=held_count)
 
 
 def moe_ffn_dense_ref(x: torch.Tensor, params: dict, *, num_experts: int,

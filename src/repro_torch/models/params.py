@@ -8,7 +8,12 @@ dim. Layouts are the JAX ones: ``wq (D,H,hd)``, ``wo (H,hd,D)``,
 Every slot kind of the JAX package: attention (``wq``, ``wk``, ``wv``,
 ``wo``) or Mamba2 SSM (``w_xz (D,2,Di)``, ``w_bc (D,2,N)``, ``w_dt (D,H)``,
 ``conv_* (K,·)``, ``out (Di,D)``), then a dense MLP or an MoE FFN
-(``router (D,E)``, ``w_in (E,D,2,F)``, ``w_out (E,F,D)``). Codebook
+(``router (D,E)``, ``w_in (E,D,2,F)``, ``w_out (E,F,D)``; E the experts
+held here, ``held_experts``, and the router over every expert), beside
+it a shared expert where the config has one (``shared``: ``w_in
+(D,2,Fs)``, ``w_out (Fs,D)``), and a Mamba2 slot of a config with
+``ssm_conv_bias`` the conv biases ``conv_x_bias (Di,)``,
+``conv_b_bias``/``conv_c_bias (N,)``. Codebook
 configs embed and unembed with ``(C,V,D)`` tables; a frontend adds no
 params (its embeddings come precomputed, as in the JAX package).
 
@@ -25,6 +30,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.port import held_experts, option
 from repro_torch.parallel.sharding import is_logical, tree_map
 
 PyTree = Any
@@ -58,8 +64,8 @@ def slot_kind(cfg: ModelConfig, slot: int) -> Dict[str, Any]:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise on a config the model cannot run: query heads that do not
-    group over the kv heads, or more experts a token than the layer has.
-    Every arch of the registry passes."""
+    group over the kv heads, more experts a token than the layer has, or
+    more experts held than it has. Every arch of the registry passes."""
     layer_period(cfg)
     if cfg.num_heads and (not cfg.num_kv_heads or cfg.num_heads % cfg.num_kv_heads):
         raise ValueError(f"{cfg.name}: {cfg.num_heads} q heads do not group over "
@@ -67,6 +73,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.num_experts and not 0 < cfg.num_experts_per_tok <= cfg.num_experts:
         raise ValueError(f"{cfg.name}: top-{cfg.num_experts_per_tok} routing over "
                          f"{cfg.num_experts} experts")
+    if not 0 <= option(cfg, "experts_held") <= cfg.num_experts:
+        raise ValueError(f"{cfg.name}: {option(cfg, 'experts_held')} experts held of "
+                         f"{cfg.num_experts}")
 
 
 def _attn_shapes(cfg: ModelConfig):
@@ -89,7 +98,7 @@ def _mlp_shapes(cfg: ModelConfig):
 
 
 def _moe_shapes(cfg: ModelConfig):
-    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    d, f, e = cfg.d_model, cfg.d_ff, held_experts(cfg)
     return {
         "router": ((d, e), ("fsdp", None)),
         "w_in": ((e, d, 2, f), ("experts", "fsdp", None, None)),
@@ -112,6 +121,18 @@ def _ssm_shapes(cfg: ModelConfig):
         "dt_bias": ((h,), ("ssm_inner",)),
         "norm": ((din,), ("ssm_inner",)),
         "out": ((din, d), ("ssm_inner", "fsdp")),
+        **({"conv_x_bias": ((din,), ("ssm_inner",)), "conv_b_bias": ((n,), (None,)),
+            "conv_c_bias": ((n,), (None,))} if option(cfg, "ssm_conv_bias") else {}),
+    }
+
+
+def _shared_shapes(cfg: ModelConfig):
+    """The always-on shared expert beside the MoE: a gated MLP of width
+    ``shared_d_ff``."""
+    d, f = cfg.d_model, option(cfg, "shared_d_ff")
+    return {
+        "w_in": ((d, 2, f), ("fsdp", None, "mlp")),
+        "w_out": ((f, d), ("mlp", "fsdp")),
     }
 
 
@@ -136,7 +157,10 @@ def _init_ssm(cfg: ModelConfig, g: int, dense, ones, generator, device) -> dict:
 
     dt = torch.exp(uniform(0.0, 1.0) * (math.log(0.1) - math.log(1e-3))
                    + math.log(1e-3))
-    return {"w_xz": dense((d, 2, din), d),
+    bias = ({"conv_x_bias": dense((din,), k), "conv_b_bias": dense((n,), k),
+             "conv_c_bias": dense((n,), k)} if option(cfg, "ssm_conv_bias") else {})
+    return {**bias,
+            "w_xz": dense((d, 2, din), d),
             "w_bc": dense((d, 2, n), d),
             "w_dt": dense((d, h), d),
             "conv_x": dense((k, din), k),
@@ -186,9 +210,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if kind["has_ffn"]:
             p["norm2"] = {"scale": ones(d)}
         if kind["has_ffn"] and kind["moe"]:        # params.py:70-76, fan-in D, D, F
-            e = cfg.num_experts
-            p["moe"] = {"router": dense((d, e), d), "w_in": dense((e, d, 2, f), d),
-                        "w_out": dense((e, f, d), f)}
+            e = held_experts(cfg)
+            p["moe"] = {"router": dense((d, cfg.num_experts), d),
+                        "w_in": dense((e, d, 2, f), d), "w_out": dense((e, f, d), f)}
+            fs = option(cfg, "shared_d_ff")
+            if fs:
+                p["shared"] = {"w_in": dense((d, 2, fs), d), "w_out": dense((fs, d), fs)}
         elif kind["has_ffn"]:
             p["mlp"] = {"w_in": dense((d, 2, f), d), "w_out": dense((f, d), f)}
         layers.append(p)
@@ -268,6 +295,8 @@ def _slot_logical(cfg: ModelConfig, slot: int):
         logical["norm2"] = {"scale": ("embed",)}
         if kind["moe"]:
             logical["moe"] = {n: lg for n, (s, lg) in _moe_shapes(cfg).items()}
+            if option(cfg, "shared_d_ff"):
+                logical["shared"] = {n: lg for n, (s, lg) in _shared_shapes(cfg).items()}
         else:
             logical["mlp"] = {n: lg for n, (s, lg) in _mlp_shapes(cfg).items()}
     return tree_map(lambda lg: ("layer_group",) + lg, logical, is_leaf=is_logical)

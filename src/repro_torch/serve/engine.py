@@ -49,8 +49,8 @@ All device work of both engines is issued on the current stream, in
 program order: the in-place cache and position writes of a slot
 admitted while a decode step is in flight follow that step's reads.
 
-On the card, with ``impl="auto"`` and no MoE layer
-(``decode_graph.applies``), the decode step is captured as CUDA graphs
+On the card, with ``impl="auto"`` (and, for a config with MoE layers,
+no mesh: ``decode_graph.applies``), the decode step is captured as CUDA graphs
 at the first decode step and replayed from then on
 (``serve/decode_graph.py``: one graph between each two attention layers'
 decode attention, which is launched eagerly between the replays), for
@@ -74,8 +74,20 @@ sampling call) and ``serve.prefill.sync`` (the first token's host read),
 ``pieces``, 0 when eager; the first replayed step also captures) with
 ``serve.decode.inputs`` and ``serve.decode.enqueue``, and
 ``serve.finish`` with ``serve.finish.sync`` (the step's token and
-position reads). Without one (the default) each
+position reads). ``serve.prefill`` and ``serve.decode`` also carry
+``moe_layers`` and ``moe_rows``: the rows the MoE layers' lossless
+buffers compute in the call, ``E_held x T`` a layer for its T tokens
+(the bucket, or ``slots``), reckoned on the host (0 without MoE layers
+or off the card). Without a tracer (the default) each
 site costs one test of ``None``; tracing changes no token.
+
+An engine on the card whose config has MoE layers also counts, in
+``stats``: ``moe_rows_computed``, the same rows summed on the host, and
+``moe_assignments_held``, the (token, k) assignments its held experts
+kept, added up on the device (inside the graph too) and read only when
+``stats`` is read. Their ratio is the share of the lossless buffers'
+rows that hold a routed token. A CPU engine has neither key, so its
+``stats`` stay the JAX engine's.
 """
 from __future__ import annotations
 
@@ -87,10 +99,11 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.port import held_experts
 from repro_torch.core.fabric import Fabric
 from repro_torch.core.runtime import FabricRuntime, Signal
 from repro_torch.models import model as M
-from repro_torch.models.params import compute_copy, layer_period, slot_kind
+from repro_torch.models.params import compute_copy, layer_period, num_groups, slot_kind
 from repro_torch.serve import decode_graph
 
 
@@ -168,9 +181,11 @@ class _EngineCore:
         self.active: List[Optional[Request]] = [None] * slots
         self.queue: List[Request] = []
         self.finished: List[Request] = []   # retired, not yet drained by run()
-        self.stats: Dict[str, float] = {
+        self._stats: Dict[str, float] = {
             "prefill_tokens": 0, "decode_steps": 0,
             "prefill_compilations": 0, "prefill_padded_tokens": 0}
+        self._moe_layers = 0                       # MoE layers, when counted (below)
+        self._held: Optional[torch.Tensor] = None  # assignments kept, on the device
         self._compiled_buckets: set = set()
         self.host_tracer = host_tracer
         self._request_spans: Dict[int, Any] = {}   # id(request) -> its open span
@@ -198,7 +213,30 @@ class _EngineCore:
         self.bucket_prefill = bucket_prefill and attn_only
         self._graphed = decode_graph.applies(cfg, self.device, impl)
         if self._graphed:
-            self.stats["decode_graph_replays"] = 0
+            self._stats["decode_graph_replays"] = 0
+        moe_layers = num_groups(cfg) * sum(slot_kind(cfg, s)["moe"]
+                                           for s in range(layer_period(cfg)))
+        if moe_layers and self.device.type == "cuda":
+            self._moe_layers = moe_layers
+            self._held = torch.zeros((), dtype=torch.int64, device=self.device)
+            self._stats["moe_rows_computed"] = 0
+            self._stats["moe_assignments_held"] = 0
+
+    @property
+    def stats(self) -> Dict[str, float]:
+        """The engine's counters. ``moe_assignments_held`` is read from the
+        device here, and only here."""
+        if self._held is not None:
+            self._stats["moe_assignments_held"] = int(self._held)
+        return self._stats
+
+    def _moe_rows(self, tokens: int) -> int:
+        """Rows the MoE layers' lossless buffers compute for a call on
+        ``tokens`` tokens: ``E_held x tokens`` a layer, reckoned on the host."""
+        rows = self._moe_layers * held_experts(self.cfg) * tokens
+        if rows:
+            self._stats["moe_rows_computed"] += rows
+        return rows
 
     @staticmethod
     def _sim_token(rid: int, i: int) -> int:
@@ -227,14 +265,16 @@ class _EngineCore:
         if self.compute == "sim":
             n = len(np.asarray(req.prompt))
             req.out_tokens.append(self._sim_token(req.rid, 0))
-            self.stats["prefill_tokens"] += n
+            self._stats["prefill_tokens"] += n
             return None, n
         ht = self.host_tracer
         prompt = np.asarray(req.prompt)                  # (S,) or (S, C)
         n = prompt.shape[0]
         bucket = self._bucket_len(n)
+        moe_rows = self._moe_rows(bucket)
         if ht is not None:
-            span = ht.open("serve.prefill", rid=req.rid, tokens=n, bucket=bucket)
+            span = ht.open("serve.prefill", rid=req.rid, tokens=n, bucket=bucket,
+                           moe_layers=self._moe_layers, moe_rows=moe_rows)
         if bucket > n:
             pad = np.zeros((bucket - n,) + prompt.shape[1:], prompt.dtype)
             prompt = np.concatenate([prompt, pad])
@@ -244,8 +284,8 @@ class _EngineCore:
         if ht is not None:
             part = ht.open("serve.prefill.enqueue")
         logits, cache1, npos = M.prefill(self.cfg, self.params, toks, self.max_len,
-                                         impl=self.impl,
-                                         cache_dtype=self.cache_dtype, length=n)
+                                         impl=self.impl, cache_dtype=self.cache_dtype,
+                                         length=n, held_count=self._held)
         tok = self._sample(logits[:, -1], req.temperature)
         if ht is not None:
             ht.close(part)
@@ -256,9 +296,9 @@ class _EngineCore:
         if ht is not None:
             ht.close(part)
             self._host_syncs += 1
-        self.stats["prefill_tokens"] += n
-        self.stats["prefill_padded_tokens"] += bucket - n
-        self.stats["prefill_compilations"] = len(self._compiled_buckets)
+        self._stats["prefill_tokens"] += n
+        self._stats["prefill_padded_tokens"] += bucket - n
+        self._stats["prefill_compilations"] = len(self._compiled_buckets)
         if ht is not None:
             ht.close(span)
         return cache1, npos
@@ -302,14 +342,14 @@ class _EngineCore:
             for s in range(self.slots):
                 if self.active[s] is not None:
                     self.pos[s] += 1
-            self.stats["decode_steps"] += 1
+            self._stats["decode_steps"] += 1
             return None
         ht = self.host_tracer
         if ht is not None:
             span = ht.open("serve.decode", active=len(act))
         if self._graphed and self._graph is None:
             self._graph = decode_graph.DecodeGraph(self.cfg, self.params, self.cache,
-                                                   self.pos, self.cache_dtype)
+                                                   self.pos, self.cache_dtype, self._held)
         graph = self._graph
         if ht is not None:
             part = ht.open("serve.decode.inputs")
@@ -326,18 +366,21 @@ class _EngineCore:
             part = ht.open("serve.decode.enqueue")
         if graph is None:
             logits, self.cache = M.decode_step(self.cfg, self.params, tokens,
-                                               self.cache, self.pos, impl=self.impl)
+                                               self.cache, self.pos, impl=self.impl,
+                                               held_count=self._held)
         else:
             logits = graph.replay()
-            self.stats["decode_graph_replays"] += 1
+            self._stats["decode_graph_replays"] += 1
         if ht is not None:
             ht.close(part)
         live = [1 if self.active[s] is not None else 0 for s in range(self.slots)]
         self.pos += torch.as_tensor(live, dtype=torch.int32, device=self.device)
-        self.stats["decode_steps"] += 1
+        self._stats["decode_steps"] += 1
+        moe_rows = self._moe_rows(self.slots)
         if ht is not None:
             ht.close(span, graphed=graph is not None,
-                     pieces=0 if graph is None else graph.pieces)
+                     pieces=0 if graph is None else graph.pieces,
+                     moe_layers=self._moe_layers, moe_rows=moe_rows)
         return logits
 
     def _finish_decode(self, act: List[int], logits) -> List[Request]:

@@ -6,19 +6,25 @@ On the CPU:
   cache of ``decode_step`` without it, bit for bit, and calls ``attend``
   once for each attention layer (the graph's split point);
 - the rule (``decode_graph.applies``): a CUDA device, ``impl="auto"``,
-  no MoE layer; an engine it leaves out has no ``decode_graph_replays``
-  in its ``stats`` (which stay the JAX engine's) and its ``serve.decode``
-  spans say ``graphed=False``;
+  and for a config with MoE layers the local dispatch (no mesh); an
+  engine it leaves out has no ``decode_graph_replays`` in its ``stats``
+  (which stay the JAX engine's) and its ``serve.decode`` spans say
+  ``graphed=False``;
 - K2's ``out=`` takes only a buffer of q's shape, the cache dtype and q's
   device, and is written in place.
 
 On a card (``-m gpu``): the engine graphed and eager side by side, on
-reduced internlm2 and reduced mamba2, 8 slots, requests admitted and
-retired mid-run over more than 40 decode steps, prompts long enough for
-K2's split merge: the same greedy tokens, the same logits, every decode
-step a replay, K2 launched once an attention layer a step, as eager, and
-its counters left 0.
+reduced internlm2, reduced mamba2 and a reduced granite-4.0-h-small
+(Mamba2 and NoPE attention layers over 6 held of 16 experts and a
+shared expert), 8 slots, requests admitted and retired mid-run over
+more than 40 decode steps, prompts long enough for K2's split merge:
+the same greedy tokens, the same logits, every decode step a replay, K2
+launched once an attention layer a step, as eager, and its counters
+left 0; for the MoE config also the same MoE counters, the host's rows
+as the buffers' shapes make them.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -91,18 +97,32 @@ def test_attend_is_decode(arch):
     ("internlm2-1.8b", "cpu", "auto", False),
     ("internlm2-1.8b", "cuda", "ref", False),
     ("internlm2-1.8b", "cuda", "blocked", False),
-    ("granite-moe-1b-a400m", "cuda", "auto", False),
-    ("jamba-1.5-large-398b", "cuda", "auto", False),
+    ("granite-moe-1b-a400m", "cuda", "auto", True),
+    ("jamba-1.5-large-398b", "cuda", "auto", True),
 ])
 def test_rule(arch, device, impl, want):
     cfg = get_config(arch).reduced()
     assert decode_graph.applies(cfg, torch.device(device), impl) is want
 
 
+@pytest.mark.parametrize("arch,want", [("internlm2-1.8b", True), ("mamba2-2.7b", True),
+                                       ("granite-moe-1b-a400m", False),
+                                       ("granite-4.0-h-small", False)])
+def test_rule_under_a_mesh(arch, want, monkeypatch):
+    """Under a mesh an MoE layer may take the expert-parallel dispatch,
+    whose collectives no graph holds: left eager. The other configs'
+    rule does not look at the mesh."""
+    monkeypatch.setattr(decode_graph, "current_mesh", lambda: object())
+    assert decode_graph.applies(get_config(arch), torch.device("cuda"), "auto") is want
+    monkeypatch.undo()
+    assert decode_graph.applies(get_config(arch), torch.device("cuda"), "auto") is True
+
+
 @pytest.mark.parametrize("arch,impl", [("internlm2-1.8b", "auto"), ("internlm2-1.8b", "ref"),
                                        ("granite-moe-1b-a400m", "auto")])
 def test_engine_left_eager(arch, impl):
-    """The CPU, ``impl="ref"`` and an MoE config: no replay, no key."""
+    """The CPU and ``impl="ref"``: no replay, no key (nor the MoE
+    counters, which an engine keeps on the card only)."""
     cfg = get_config(arch).reduced()
     tracer = HostTracer()
     eng = ServeEngine(cfg, _params(cfg, "cpu"), slots=2, max_len=32, impl=impl,
@@ -115,6 +135,7 @@ def test_engine_left_eager(arch, impl):
     assert eng.stats["decode_steps"] > 0
     assert eng.stats.get("decode_graph_replays", 0) == 0
     assert "decode_graph_replays" not in eng.stats
+    assert "moe_rows_computed" not in eng.stats and "moe_assignments_held" not in eng.stats
     spans = [s for s in tracer.spans if s.name == "serve.decode"]
     assert len(spans) == eng.stats["decode_steps"]
     assert all(s.meta["graphed"] is False and s.meta["pieces"] == 0 for s in spans)
@@ -204,13 +225,36 @@ def _serve(cfg, params, graphed: bool, monkeypatch):
             decode_attention_kernel.launches - k2, spans)
 
 
+def _hybrid_moe():
+    """granite-4.0-h-small cut to two periods of four layers at small
+    widths, its pieces kept: NoPE attention with 4 q heads to a kv head
+    and the published score scale, Mamba2 with the conv bias (K3's
+    tensor-core shapes: P 64, N 64), 6 held of 16 experts top-4 beside a
+    shared expert, the four multipliers."""
+    return dataclasses.replace(
+        get_config("granite-4.0-h-small"), name="granite-4.0-h-small-reduced",
+        num_layers=8, attn_period=4, d_model=256, num_heads=4, num_kv_heads=1, head_dim=64,
+        d_ff=128, num_experts=16, num_experts_per_tok=4, experts_held=6, ssm_state=64,
+        ssm_head_dim=64, vocab_size=512, shared_d_ff=256)
+
+
+def _config(arch):
+    return _hybrid_moe() if arch == "granite-4.0-h-small" else get_config(arch).reduced()
+
+
+def test_hybrid_moe_config_is_graphed_on_the_card():
+    cfg = _hybrid_moe()
+    assert decode_graph.applies(cfg, torch.device("cuda"), "auto")
+    assert _attn_layers(cfg) == 2 and cfg.experts_held == 6
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-2.7b", "granite-4.0-h-small"])
 def test_graphed_matches_eager_on_card(arch, monkeypatch):
     """Run with ``-m gpu`` on a machine with a card and nvcc."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc")
-    cfg = get_config(arch).reduced()
+    cfg = _config(arch)
     params = _params(cfg, torch.device("cuda"))
     t_g, s_g, e_g, k2_g, sp_g = _serve(cfg, params, True, monkeypatch)
     t_e, s_e, e_e, k2_e, sp_e = _serve(cfg, params, False, monkeypatch)
@@ -229,3 +273,13 @@ def test_graphed_matches_eager_on_card(arch, monkeypatch):
     assert k2_g == k2_e == layers * n
     assert all(s.meta["graphed"] and s.meta["pieces"] == layers + 1 for s in sp_g)
     assert all(not s.meta["graphed"] for s in sp_e)
+    if arch == "granite-4.0-h-small":
+        moe_layers, held = cfg.num_layers, cfg.experts_held
+        prompts = sum(n for _, n, _ in SCHEDULE)
+        for e in (e_g, e_e):
+            assert e.stats["moe_rows_computed"] == moe_layers * held * (prompts + 8 * n)
+        assert e_g.stats["moe_assignments_held"] == e_e.stats["moe_assignments_held"] > 0
+        print(f"[graph] {arch}: MoE rows computed {e_g.stats['moe_rows_computed']}, "
+              f"assignments held {e_g.stats['moe_assignments_held']}")
+        assert all(s.meta["moe_layers"] == moe_layers and s.meta["moe_rows"] == moe_layers * held * 8
+                   for s in sp_g)
