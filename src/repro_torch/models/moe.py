@@ -45,7 +45,10 @@ drop. Two orders must be JAX's for the tokens to be:
   ``replicate_hot_experts``, where ties are common);
 - a slot is its assignment's position within its expert in flattened
   (token, k) order, the cumsum of ``moe.py:83``, with the trash bucket
-  at ``e_local * cap``.
+  at ``e_local * cap``. ``_slots`` computes that position to the integer
+  from one flat scan of an expert-major one-hot (a device-wide scan),
+  not from a scan over dim 0 of the (T*k, E) one-hot, which runs one
+  thread per expert down all T*k rows.
 
 Skew note (the paper's Advice #1): Zipfian routing collapses throughput
 on the "wimpy" path exactly like DDIO-less SoC writes; capacity factors
@@ -127,22 +130,48 @@ def _expert_compute(buf_e: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor
     return torch.einsum("ecf,efd->ecd", h, w_out.to(torch.bfloat16))
 
 
-def _dispatch_compute_combine(x2d, weights, idx, *, lo: int, e_local: int, cap: int,
-                              w_in, w_out, activation):
-    """Scatter the tokens routed to experts [lo, lo + e_local) into a
-    capacity buffer, run them, and combine the weighted outputs back in
-    token order (``moe.py:71-98``). Returns (y (T,D) f32, kept mask,
-    is_mine mask over (T*k,))."""
-    t, d = x2d.shape
-    k = idx.shape[1]
-    flat_e = idx.reshape(t * k)
+def _slots(flat_e: torch.Tensor, *, lo: int, e_local: int, cap: int):
+    """Each (token, k) assignment's place in the capacity buffer of experts
+    [lo, lo + e_local): ``flat_e`` (N,) the routed experts in flattened
+    (token, k) order. Returns (is_mine, pos, keep, slot), each (N,): pos
+    is the assignment's position within its expert in that order (-1 for
+    the trash bucket, assignments to other experts), JAX's cumsum of
+    ``moe.py:83`` to the integer; slot is ``eff * cap + pos`` where kept,
+    else the trash row ``e_local * cap``.
+
+    The one-hot is laid out expert-major, (e_local, N) int32, and scanned
+    as one flat vector, which PyTorch hands to CUB's device-wide scan; a
+    scan over dim 0 of the (N, e_local) one-hot, as ``moe.py:83`` writes
+    it, runs one thread per expert down all N rows, the largest device
+    item of a long MoE prefill. An entry of the flat scan counts the
+    assignments to lower experts (``below``) plus its own expert's up to
+    its token; every value is at most N, so int32 holds it. Nothing reads
+    the device from the host, so a CUDA graph replays it."""
+    n = flat_e.shape[0]
     is_mine = (flat_e >= lo) & (flat_e < lo + e_local)
     eff = torch.where(is_mine, flat_e - lo, e_local)               # trash bucket
     # one-hot by comparison: F.one_hot may check its classes on the host
-    onehot = (eff[:, None] == torch.arange(e_local, device=eff.device)).long()
-    pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1       # (T*k,)
+    experts = torch.arange(e_local, device=flat_e.device)
+    onehot = (eff[None, :] == experts[:, None]).to(torch.int32)    # (E_local, N)
+    rank = torch.cumsum(onehot.view(-1), 0, dtype=torch.int32).view(e_local, n)
+    count = onehot.sum(1, dtype=torch.int32)
+    below = torch.cumsum(count, 0, dtype=torch.int32) - count      # (E_local,)
+    row = eff.clamp(max=e_local - 1)
+    pos = torch.where(is_mine, rank.gather(0, row[None])[0] - below[row] - 1, -1)
     keep = is_mine & (pos < cap) & (pos >= 0)
     slot = torch.where(keep, eff * cap + pos, e_local * cap)
+    return is_mine, pos, keep, slot
+
+
+def _dispatch_compute_combine(x2d, weights, idx, *, lo: int, e_local: int, cap: int,
+                              w_in, w_out, activation):
+    """Scatter the tokens routed to experts [lo, lo + e_local) into a
+    capacity buffer at the places ``_slots`` gives, run them, and combine
+    the weighted outputs back in token order (``moe.py:71-98``). Returns
+    (y (T,D) f32, kept mask, is_mine mask over (T*k,))."""
+    t, d = x2d.shape
+    k = idx.shape[1]
+    is_mine, _, keep, slot = _slots(idx.reshape(t * k), lo=lo, e_local=e_local, cap=cap)
 
     x_rep = x2d[:, None].expand(t, k, d).reshape(t * k, d)         # each token k times
     # every dropped assignment writes the trash row, which no expert reads

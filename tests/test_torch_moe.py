@@ -211,6 +211,55 @@ def test_dispatch_compute_combine(setup, lo, e_local, cap):
     _check(f"dispatch lo={lo} e_local={e_local} cap={cap} y vs JAX, rel", _rel(jy, ty), BF16_REL)
 
 
+def _jax_slots(flat_e, lo, e_local, cap):
+    """``moe.py:79-85``'s slot formula in jnp: (is_mine, pos, keep, slot)."""
+    flat_e = jnp.asarray(flat_e)
+    is_mine = (flat_e >= lo) & (flat_e < lo + e_local)
+    eff = jnp.where(is_mine, flat_e - lo, e_local)
+    onehot = jax.nn.one_hot(eff, e_local + 1, dtype=jnp.int32)[:, :e_local]
+    pos = (jnp.cumsum(onehot, axis=0) * onehot).sum(-1) - 1
+    keep = is_mine & (pos < cap) & (pos >= 0)
+    slot = jnp.where(keep, eff * cap + pos, e_local * cap)
+    return is_mine, pos, keep, slot
+
+
+def _routing(kind, t, k, e, seed=0):
+    """(T*k,) experts in (token, k) order, k distinct a token: ``uniform``
+    random scores, ``skewed`` Zipf-weighted scores (expert 0 hottest)."""
+    rng = np.random.default_rng(seed)
+    scores = rng.random((t, e))
+    if kind == "skewed":
+        scores = scores ** (1.0 / (np.arange(1, e + 1) ** -1.2))
+    return np.argsort(-scores, axis=-1, kind="stable")[:, :k].reshape(-1)
+
+
+@pytest.mark.parametrize("kind,t,k,e,lo,e_local,cap", [
+    ("uniform", 256, 2, 8, 0, 8, 256),      # small, lossless
+    ("skewed", 256, 2, 8, 0, 8, 256),
+    ("skewed", 256, 2, 8, 0, 8, 7),         # capacity drops
+    ("uniform", 256, 2, 8, 0, 8, 13),
+    ("skewed", 256, 2, 8, 0, 8, 40),
+    ("uniform", 256, 2, 8, 2, 3, 20),       # test_dispatch_compute_combine's EP shards
+    ("skewed", 256, 2, 8, 5, 3, 7),
+    ("uniform", 256, 2, 8, 8, 4, 13),       # every assignment in the trash bucket
+    ("uniform", 7680, 10, 72, 0, 18, 7680),  # the rag cell's longest prefill, lossless
+])
+def test_slots_match_jax(kind, t, k, e, lo, e_local, cap):
+    """``_slots`` (one flat scan of an expert-major one-hot) gives JAX's
+    is_mine, position, kept mask and slot exactly, on routings with and
+    without drops, on expert shards, and at the rag cell's T*k = 76,800
+    over 18 held of 72 experts."""
+    flat_e = _routing(kind, t, k, e)
+    want = [np.asarray(v) for v in _jax_slots(flat_e, lo, e_local, cap)]
+    got = TMoE._slots(torch.from_numpy(flat_e), lo=lo, e_local=e_local, cap=cap)
+    for name, w, g in zip(("is_mine", "pos", "keep", "slot"), want, got):
+        assert np.array_equal(w, g.numpy()), name
+    if lo >= e:
+        assert (want[1] == -1).all()
+    print(f"[parity] slots {kind} T*k={t * k} lo={lo} e_local={e_local} cap={cap}: "
+          f"kept {int(want[2].sum())} of {int(want[0].sum())} held, equal")
+
+
 @pytest.mark.parametrize("t,k,e,cf", [(256, 2, 8, 1.25), (256, 2, 8, None), (7, 6, 64, 1.25),
                                       (3, 2, 4, 0.1)])
 def test_capacity(t, k, e, cf):
